@@ -1,0 +1,62 @@
+"""Shared method-layer plumbing (port of the JAX package's methods/base.py):
+the result type, VAE decode, negative-prompt handling and the batched
+per-box GLIGEN inputs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..nn import vae as vaelib
+from ..runtime import models as runtime_models
+from ..runtime.models import ModelBundle
+
+
+@dataclass
+class GenerationResult:
+    image: np.ndarray                      # (H, W, 3) uint8
+    so_img_list: list = field(default_factory=list)  # per-box images
+    aux: dict = field(default_factory=dict)
+
+
+@torch.no_grad()
+def decode_latents(bundle: ModelBundle, latents: torch.Tensor) -> np.ndarray:
+    """Latents (B, h, w, 4) -> uint8 images (B, H, W, 3) on the host."""
+    images = bundle.vae(latents.to(bundle.device))
+    return vaelib.to_uint8(images).cpu().numpy()
+
+
+def with_extra_negative(spec, negative_prompt: str) -> str:
+    """Prepend the spec's extra negative prompt."""
+    extra = spec.get("extra_neg_prompt") if isinstance(spec, dict) else getattr(
+        spec, "extra_neg_prompt", "")
+    if extra:
+        return f"{extra}, {negative_prompt}"
+    return negative_prompt
+
+
+def make_gligen_inputs_batched(bundle: ModelBundle, bboxes: list,
+                               pooled: torch.Tensor):
+    """Per-box grounding for the batched per-box passes: image i grounds only
+    box i (slot 0), with `pooled` (N, D) its phrase embeddings. Returns
+    (objs_full (2N, M, D), objs_guidance (N, M, D)) with the uncond half's
+    grounding nulled; guidance forwards take the nulled half."""
+    n = len(bboxes)
+    max_objs = bundle.config.unet.gligen_max_objs
+    pooled = pooled.cpu().numpy()
+
+    boxes = np.zeros((n, max_objs, 4), np.float32)
+    embs = np.zeros((n, max_objs, pooled.shape[-1]), np.float32)
+    masks = np.zeros((n, max_objs), np.float32)
+    boxes[:, 0] = np.asarray(bboxes, np.float32)
+    embs[:, 0] = pooled
+    masks[:, 0] = 1.0
+
+    boxes2 = np.concatenate([boxes, boxes], axis=0)
+    embs2 = np.concatenate([embs, embs], axis=0)
+    masks2 = np.concatenate([np.zeros_like(masks), masks], axis=0)
+    objs_full = runtime_models.gligen_objs(bundle, boxes2, masks2, embs2)
+    return objs_full, objs_full[:n]

@@ -1,0 +1,141 @@
+"""Model bundle: modules + tokenizer for one SD configuration (port of the JAX
+package's runtime/models.py).
+
+`load_bundle` builds a bundle with deterministic random weights drawn from a
+seeded `torch.Generator` (weightless mode: timing, smoke runs); `build_bundle`
+takes converted state dicts (`runtime/convert.py::from_jax_params`), which
+is how the tests run both packages on the same weights. Entry points run on
+`cuda` unless the caller passes `device="cpu"`; without a card and without
+that request they raise.
+
+Storage follows the JAX side's inference cast: weights in the compute dtype,
+every parameter whose name contains "norm" in f32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import SD_CONFIGS, SDConfig
+from ..nn.clip import CLIPTextEncoder
+from ..nn.unet import PositionNet, UNet2DCondition
+from ..nn.vae import VAEDecoder
+from ..text import tokens as toklib
+
+F32_PARAM_NAME_MARKERS = ("norm",)
+
+
+@dataclass
+class ModelBundle:
+    config: SDConfig
+    tokenizer: Any
+    unet: UNet2DCondition
+    text_encoder: CLIPTextEncoder
+    vae: VAEDecoder
+    position_net: PositionNet | None
+    device: torch.device
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless the caller names a device; no silent CPU fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _random_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Flax-default-like init: weights ~ N(0, 1/fan_in), biases and GLIGEN
+    gates 0, norm scales 1, position embeddings N(0, 0.01^2)."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        with torch.no_grad():
+            if any(m in name for m in F32_PARAM_NAME_MARKERS):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias" or p.dim() < 2:
+                p.zero_()
+            elif "position_embedding" in name:
+                p.normal_(0.0, 0.01, generator=generator)
+            elif "token_embedding" in name:
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+            else:
+                fan_in = p[0].numel()
+                p.normal_(0.0, fan_in ** -0.5, generator=generator)
+
+
+def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> None:
+    """Weights to the compute dtype; "norm" parameters stay f32."""
+    for name, p in module.named_parameters():
+        if not any(m in name for m in F32_PARAM_NAME_MARKERS):
+            p.data = p.data.to(dtype)
+
+
+def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 0,
+                 device=None) -> ModelBundle:
+    """Bundle from converted state dicts ({"unet", "text", "vae",
+    "position_net"}) or, when None, from seeded random weights."""
+    device = resolve_device(device)
+    dtype = config.torch_dtype()
+    with torch.device(device):
+        unet = UNet2DCondition(config.unet, dtype=dtype)
+        text = CLIPTextEncoder(config.clip, dtype=dtype)
+        vae = VAEDecoder(config.vae)
+        pn = (PositionNet(config.clip.hidden_size, config.unet.cross_attention_dim,
+                          config.unet.gligen_fourier_freqs)
+              if config.unet.use_gligen else None)
+    parts = {"unet": unet, "text": text, "vae": vae, "position_net": pn}
+    generator = torch.Generator(device=device).manual_seed(seed)
+    for key, module in parts.items():
+        if module is None:
+            continue
+        if state_dicts is None:
+            _random_init(module, generator)
+        else:
+            module.load_state_dict(state_dicts[key], strict=True)
+        cast_for_inference(module, dtype)
+        module.eval().requires_grad_(False)
+    return ModelBundle(config=config, tokenizer=toklib.default_tokenizer(),
+                       unet=unet, text_encoder=text, vae=vae, position_net=pn,
+                       device=device)
+
+
+def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
+                seed: int = 0, device=None) -> ModelBundle:
+    """Weightless bundle for `model_key` (random weights from `seed`)."""
+    return build_bundle(SD_CONFIGS[model_key](), None, seed=seed, device=device)
+
+
+@torch.no_grad()
+def encode_text(bundle: ModelBundle, texts: list[str]):
+    """Raw texts -> (hidden (N, 77, D) f32, pooled (N, D) f32) on the device."""
+    ids = np.asarray(
+        [bundle.tokenizer.encode(t, pad_to=toklib.MAX_LENGTH) for t in texts], np.int64)
+    # Reduced-vocab test configs only: fold ids into the model's vocab.
+    vocab = bundle.config.clip.vocab_size
+    eos_id = bundle.tokenizer.eos_id
+    if vocab < toklib.BOS_ID:
+        ids = ids % vocab
+        eos_id = eos_id % vocab
+    hidden, pooled = bundle.text_encoder(
+        torch.from_numpy(ids).to(bundle.device), eos_token_id=eos_id)
+    return hidden.float(), pooled.float()
+
+
+@torch.no_grad()
+def gligen_objs(bundle: ModelBundle, boxes, masks, phrase_embeddings):
+    """PositionNet forward: packed GLIGEN condition -> grounding tokens."""
+    if bundle.position_net is None:
+        raise ValueError("model has no GLIGEN adapters")
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=bundle.device)
+
+    return bundle.position_net(dev(boxes), dev(masks), dev(phrase_embeddings))

@@ -1,8 +1,8 @@
 """Model/architecture configurations (port of the JAX package's config.py).
 
 Frozen dataclasses, field for field the same as the JAX side, so that a
-configuration names the same network in both packages. Only the SD1.4+GLIGEN
-bundle and the tiny CPU-test config are served by this slice.
+configuration names the same network in both packages. Served: SD1.5 (LMD),
+SD1.4+GLIGEN (LMD+) and the tiny CPU-test config.
 """
 
 from __future__ import annotations
@@ -88,6 +88,11 @@ class SDConfig:
         return getattr(torch, self.dtype)
 
 
+def sd15() -> SDConfig:
+    """SD v1.5 (training-free LMD's base model)."""
+    return SDConfig(key="runwayml/stable-diffusion-v1-5")
+
+
 def sd14_gligen() -> SDConfig:
     """SD v1.4 with GLIGEN grounding adapters (LMD+'s base model)."""
     return SDConfig(key="gligen/diffusers-generation-text-box",
@@ -120,6 +125,7 @@ def tiny_test() -> SDConfig:
 
 
 SD_CONFIGS = {
+    "runwayml/stable-diffusion-v1-5": sd15,
     "gligen/diffusers-generation-text-box": sd14_gligen,
     "tiny-test": tiny_test,
 }

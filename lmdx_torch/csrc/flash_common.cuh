@@ -1,4 +1,5 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the port's attention kernels: flash_bwd.cu and the forward
+// body of attention_fwd.cuh, which flash_fwd.cu and sam_attention.cu run.
 //
 // Every matrix product is done by warps on bf16 tensor-core tiles through
 // the WMMA API (16x16x16, f32 accumulate). Operands and accumulators live in

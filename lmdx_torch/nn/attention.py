@@ -11,7 +11,10 @@ the guidance loss back-propagates through them into the latents.
 Dispatch is the JAX side's: untapped layers whose KV has >= 256 tokens go
 through the flash-attention kernel (`kernels/flash_attention.py`); tapped
 layers, the 77-token cross-attention and the 64-token mid block stay plain
-math (matmul + f32 softmax).
+math (matmul + f32 softmax). SAM's encoder attention (nn/sam.py) dispatches
+the same way through its own kernel (`kernels/sam_attention.py`): every grid
+of >= 196 tokens (the 14x14 windows, the 64x64 global layers) takes it; its
+mask decoder's attentions stay plain math.
 
 Dtypes: Linear/Conv weights are stored in the compute dtype and cast their
 input to it (flax `Dense(dtype=...)`); norm parameters stay f32 and norms

@@ -10,6 +10,9 @@ that request they raise.
 
 Storage follows the JAX side's inference cast: weights in the compute dtype,
 every parameter whose name contains "norm" in f32.
+
+`build_sam` builds the SAM segmenter's network the same way (random weights
+from a seed, or a state dict with transformers `SamModel` key names).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 
 from ..config import SD_CONFIGS, SDConfig
 from ..nn.clip import CLIPTextEncoder
+from ..nn.sam import Sam, SamConfig, sam_vit_base
 from ..nn.unet import PositionNet, UNet2DCondition
 from ..nn.vae import VAEDecoder
 from ..text import tokens as toklib
@@ -111,6 +115,62 @@ def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
                 seed: int = 0, device=None) -> ModelBundle:
     """Weightless bundle for `model_key` (random weights from `seed`)."""
     return build_bundle(SD_CONFIGS[model_key](), None, seed=seed, device=device)
+
+
+# SAM parameters kept in f32 whatever the compute dtype, as the JAX segmenter
+# computes: norms, the rel-pos tables (f32 bias), the prompt encoder's tables
+# and Gaussian, and the decoder's output tokens.
+SAM_F32_MARKERS = ("norm", "rel_pos", "prompt_encoder.", "iou_token", "mask_tokens")
+
+
+_SAM_TABLES = ("prompt_encoder.point_embed", "prompt_encoder.not_a_point_embed",
+               "prompt_encoder.no_mask_embed")
+_SAM_GAUSSIAN = ("prompt_encoder.shared_embedding", "mask_decoder.iou_token",
+                 "mask_decoder.mask_tokens")
+
+
+def _random_init_sam(model: Sam, generator: torch.Generator) -> None:
+    """Weights ~ N(0, 1/fan_in), biases 0, norm scales 1; the tokens and
+    the Fourier Gaussian ~ N(0, 1) and the point tables ~ N(0, 1/dim), as
+    flax initializes them; rel-pos tables ~ N(0, 1/head_dim), not the JAX
+    side's zeros, so that the bias carries real numbers; position
+    embeddings N(0, 0.02^2)."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        with torch.no_grad():
+            if "norm" in name:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias":
+                p.zero_()
+            elif "rel_pos" in name or name.startswith(_SAM_TABLES):
+                p.normal_(0.0, p.shape[-1] ** -0.5, generator=generator)
+            elif name.startswith(_SAM_GAUSSIAN):
+                p.normal_(0.0, 1.0, generator=generator)
+            elif leaf == "pos_embed":
+                p.normal_(0.0, 0.02, generator=generator)
+            elif "upscale_conv" in name:  # (in, out, kh, kw): fan_in = in
+                p.normal_(0.0, p.shape[0] ** -0.5, generator=generator)
+            else:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+
+
+def build_sam(config: SamConfig | None = None, state_dict: dict | None = None,
+              seed: int = 0, device=None, dtype: torch.dtype = torch.bfloat16) -> Sam:
+    """SAM (ViT-B unless `config` says otherwise) from a state dict with
+    transformers `SamModel` key names or, when None, seeded random weights.
+    Linear/Conv weights are stored in `dtype`, SAM_F32_MARKERS in f32."""
+    device = resolve_device(device)
+    config = config or sam_vit_base()
+    with torch.device(device):
+        model = Sam(config, dtype)
+    if state_dict is None:
+        _random_init_sam(model, torch.Generator(device=device).manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    for name, p in model.named_parameters():
+        if not any(m in name for m in SAM_F32_MARKERS):
+            p.data = p.data.to(dtype)
+    return model.eval().requires_grad_(False)
 
 
 @torch.no_grad()

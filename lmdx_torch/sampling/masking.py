@@ -12,9 +12,9 @@ Here the segmenter is pluggable:
 - `CoarseSegmenter` (default, weightless): returns the coarse mask itself —
   the thresholded attention map or the box raster. Generation runs fully
   offline; quality matches the reference's no-SAM ablation.
-- A converted SAM (the JAX package's nn/sam.py; not yet ported) drops in
-  via the same protocol for
-  checkpoint-backed runs.
+- `nn/sam.py::SamSegmenter` (SAM ViT-B, from seeded random weights or a
+  state dict with transformers `SamModel` key names) drops in via the same
+  protocol.
 
 Prompt extraction and mask selection are host-side numpy (once per box, off
 the hot path); a real segmenter's forward runs batched — all boxes of a
@@ -114,7 +114,7 @@ def select_mask(masks: np.ndarray, conf_scores: np.ndarray,
 def _segment_many(segmenter: Segmenter, images, latent_hw,
                   input_points=None, input_boxes=None):
     """One prompt per image; uses the segmenter's batched forward when it has
-    one (FlaxSamSegmenter: every 1024² encoder pass in ONE compiled call),
+    one (SamSegmenter: the 1024² encoder passes in chunks of four images),
     else falls back to per-item segment. Returns list of (masks, conf)."""
     batched = getattr(segmenter, "segment_batch", None)
     if batched is not None:

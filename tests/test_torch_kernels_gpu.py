@@ -1,7 +1,8 @@
-"""The port's CUDA flash-attention kernels against their plain PyTorch
-versions, on the card. Marked `gpu`: they skip where no CUDA device is
-present. On a machine with the card (and without JAX, which the repo's root
-conftest imports), run them with
+"""The port's CUDA kernels (flash attention forward and backward, SAM
+attention) against their plain PyTorch versions, on the card. Marked
+`gpu`: they skip where no CUDA device is present. On a machine with the
+card (and without JAX, which the repo's root conftest imports), run them
+with
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_kernels_gpu.py
 
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from lmdx_torch.nn.kernels import flash_attention as fa
+from lmdx_torch.nn.kernels import sam_attention as sa
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +27,7 @@ SHAPES = [
     (16, 256, 286, 160),
     (16, 1024, 1054, 80),
     (8, 4096, 4126, 40),
+    (32, 4096, 4096, 40),   # LMD's per-box guidance: 4 boxes x 8 heads
     (2, 100, 300, 32),      # ragged q and kv tails
 ]
 
@@ -83,3 +86,45 @@ def test_wrapper_counts_and_rejects(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
     assert fa.LAUNCHES["flash_attention_fwd"] == 1
+
+
+SAM_SHAPES = [
+    # (batch*heads, gh, gw, d)
+    (4, 14, 14, 64),        # one image's windows, few heads
+    (6, 16, 13, 32),        # non-square grid, N = 208
+    (1200, 14, 14, 64),     # main path: 4 images x 25 windows x 12 heads
+    (48, 64, 64, 64),       # main path: global layers, 4 images x 12 heads
+]
+
+
+def _sam_inputs(bh, gh, gw, d, device, seed=0):
+    rng = np.random.default_rng(seed)
+    n = gh * gw
+
+    def mk(last, dtype):
+        return torch.from_numpy(rng.standard_normal((1, bh, n, last), dtype=np.float32)).to(
+            device=device, dtype=dtype)
+
+    return (mk(d, torch.bfloat16), mk(d, torch.bfloat16), mk(d, torch.bfloat16),
+            mk(gh, torch.float32), mk(gw, torch.float32))
+
+
+@pytest.mark.parametrize("bh,gh,gw,d", SAM_SHAPES)
+def test_sam_attention_matches_plain(cuda, bh, gh, gw, d):
+    args = _sam_inputs(bh, gh, gw, d, cuda)
+    got = sa.sam_attention(*args)
+    want = sa.sam_attention_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+def test_sam_wrapper_counts_and_rejects(cuda):
+    q, k, v, bh_, bw_ = _sam_inputs(2, 14, 14, 64, cuda)
+    sa.reset_launch_counts()
+    sa.sam_attention(q, k, v, bh_, bw_)
+    assert sa.LAUNCHES["sam_attention"] == 1
+    with pytest.raises(ValueError):
+        sa.sam_attention(q, k, v, bh_.to(torch.bfloat16), bw_)
+    with pytest.raises(ValueError):
+        sa.sam_attention(q, k, v, bw_, bh_[..., :13])   # grid does not match N
+    assert sa.LAUNCHES["sam_attention"] == 1

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`lmdx_torch/`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N] [--lmd-steps N] [--profile PATH]
+    python3 chip_smoke.py [--steps N] [--lmd-steps N] [--optin-steps N] [--profile PATH]
 
-Four phases; any failure exits nonzero before the final line is printed.
+Five phases; any failure exits nonzero before the final line is printed.
 
-1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`),
-   one nvcc per source, all started together, into build/kernels/.
+1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
+   six), one nvcc per source, all started together, into build/kernels/.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes. Flash attention: 8 heads; (L, head_dim) =
    (4096, 40), (1024, 80), (256, 160); at every batch and KV the two driven
@@ -20,12 +20,25 @@ Four phases; any failure exits nonzero before the final line is printed.
    (B*H = 1200, N = 14 x 14), with random f32 bias. Tolerance:
    max|kernel - plain| <= 2e-2 * max|plain| for each bf16 output (the
    kernels round p and dS to bf16 for the tensor cores) and 1e-3 for the
-   f32 LSE. Times: CUDA events over repeated launches; bound = the larger of
+   f32 LSE. Times: CUDA events over repeated launches queued behind a short
+   device spin (device time, not the host's launch rate); bound = the larger of
    (bytes each input read once + each output written once) / 3.35 TB/s and
    tensor-core operations / 989 TFLOP/s (H100 SXM dense bf16); library =
    one PyTorch call computing the same function (SDPA's flash forward and
    its backward op; for SAM, SDPA with the dense (B, H, N, N) bias
    materialized outside the timed call as its mask), a yardstick only.
+   The opt-in kernels, at every shape and batch the opt-in path (phase 5)
+   gives them: the head-packed forward at L = 4096, d = 40 (KV = L and
+   L + 30, batch 8/4/2), timed in turn with the per-head forward on the same
+   inputs; the fused-heads forward on the projection layout (B, L, 8 * d) at
+   the self and fuser shapes of the 1024-, 256- and 64-token levels and the
+   77-token cross-attention of every level (batch 8/4/2); the backward at
+   the short KV lengths the fused-heads gradient adds (KV = 77, 64, 94;
+   batch 2); `pair_stats` on bf16 (x, x) at every (C, N) of the UNet's
+   GroupNorms (batch 8/4/2) and on f32 (a, b) at those of the guidance
+   forward (batch 2), held to 1e-3 * max|plain| (f32 sums in another
+   order), bound by bytes, library = `a.sum(-1)` with `(a * b).sum(-1)`
+   (two calls).
 3. LMD+ path: `run_lmd_plus_batch` on the full-width SD1.4+GLIGEN bundle
    (random weights from seed 0), 512x512, DDIM, CFG 7.5, frozen ratio 0.5,
    GLIGEN beta 0.4, CA-energy guidance with reference-CA transfer, the
@@ -41,6 +54,17 @@ Four phases; any failure exits nonzero before the final line is printed.
    against the schedule and both passes' guidance iterations, the SAM
    launches (12 per chunk of 4 boxes), then one more box-prompted
    `segment_batch` on the per-box images (+12 launches).
+5. Opt-in LMD+ path: the bundle of phase 3 built with
+   `KernelOptions(packed_attention, fused_heads, fused_group_norm)` all on.
+   First one UNet forward and one gradient of the guidance taps w.r.t. the
+   latents (batch 2, GLIGEN on, same weights and inputs) against the bundle
+   with the options off: max|on - off| <= 5e-2 * max|off| for each (bf16
+   activations through 16 transformer blocks; the fused norms' f32
+   var = m2 - mean^2 and the kernels' bf16 probabilities are the
+   differences). Then `run_lmd_plus_batch` as in phase 3 (same layouts and
+   seeds, 512x512, 50 DDIM steps) with phase 3's checks and the launch
+   counts of all five UNet kernels against what the dispatch rule, the
+   schedule and the guidance iterations imply (the per-head forward: 0).
 
 Matmuls and convolutions run in bf16; TF32 is turned off for both
 (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32),
@@ -59,9 +83,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL_REL = 2e-2
 TOL_LSE = 1e-3
+TOL_SUMS = 1e-3           # pair_stats: f32 sums in another order
+TOL_OPTIN = 5e-2          # options-on UNet against options-off, share of max|off|
 
 # The first two of bench.py's layouts (2 boxes each).
 SPECS = [
@@ -92,12 +119,20 @@ def gpu_name_and_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+HOLD_CYCLES = 10_000_000  # ~5 ms of device spin at the H100's clock
+
+
 def cuda_ms(fn, reps: int) -> float:
+    """Device time of one call: CUDA events around `reps` calls queued behind
+    a short device spin, so that the host's launch cost (tens of microseconds
+    a call through ctypes or a chain of small PyTorch ops) is paid while the
+    device waits and the calls then run back to back."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -136,10 +171,12 @@ def _err(got, want, rel=TOL_REL):
     return err, ok
 
 
-def _bound(total: dict, flops: float, nbytes: float) -> float:
-    """Least time (ms) for the work: operations at the bf16 peak or bytes at
-    the memory rate, whichever is longer; tallies both in `total`."""
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+def _bound(total: dict, flops: float, nbytes: float,
+           peak_flops: float = PEAK_BF16_FLOPS) -> float:
+    """Least time (ms) for the work: operations at the peak rate of their
+    type (bf16 tensor cores unless given) or bytes at the memory rate,
+    whichever is longer; tallies both in `total`."""
+    ops_ms = flops / peak_flops * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     total["ops_ms"] += ops_ms
     total["bytes_ms"] += bytes_ms
@@ -154,6 +191,11 @@ def _bound(total: dict, flops: float, nbytes: float) -> float:
 # guidance; SD1.5 has no fuser).
 FWD_CASES = [(b, extra) for b in (8, 4, 2) for extra in (0, 30)]
 BWD_CASES = [(2, 0), (2, 30), (4, 0)]
+
+
+# (Lq, Lk, head_dim) of the backward calls only the opt-in path makes.
+BWD_SHORT_KV = [(4096, 77, 40), (1024, 77, 80), (256, 77, 160), (64, 77, 160),
+                (64, 64, 160), (64, 94, 160)]
 
 
 def _totals():
@@ -186,6 +228,49 @@ def _fmt(ms, plain, lib, bound, flops):
             f"{flops / ms / 1e9:.1f} TFLOP/s)")
 
 
+def _check_bwd(bwd, b, heads, L, lk, d, reps):
+    """Holds the flash backward against its plain version at one shape and
+    times it, its plain version and SDPA's flash backward op."""
+    import torch
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+
+    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    scale = d ** -0.5
+    q, k, v, do = _inputs(b, heads, L, lk, d, seed=L + lk + b + 1)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    want = fa.attention_bwd_plain(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    errs = [_err(g_, w_) for g_, w_ in zip(got, want)]
+    if not all(ok for _, ok in errs):
+        fail(f"backward disagrees at B={b} L={L} Lk={lk} d={d}: "
+             f"{[e for e, _ in errs]}")
+    bh = b * heads
+    flops = 10 * bh * L * lk * d
+    nbytes = 2 * bh * d * (3 * L + 2 * lk) + 4 * bh * L + 2 * bh * d * (L + 2 * lk)
+    bound = _bound(bwd, flops, nbytes)
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, lse, o, do), reps)
+    plain = cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, lse, o, do), reps)
+    lib = None
+    try:
+        outs = sdpa(q, k, v, 0.0, False, False, scale=scale)
+    except (RuntimeError, TypeError) as exc:  # a yardstick only
+        bwd["library_ok"] = False
+        log(f"  library backward unavailable: {type(exc).__name__}: {exc}")
+    else:
+        lo, llse, cq, ck, mq, mk_, seed_, off_ = outs[:8]
+        lib = _library_ms(bwd, "backward", lambda: sdpa_bwd(
+            do, q, k, v, lo, llse, cq, ck, mq, mk_, 0.0, False, seed_, off_,
+            scale=scale), reps)
+    _add(bwd, ms, plain, bound, lib, max(e for e, _ in errs))
+    log(f"  bwd B={b} h={heads} Lq={L} Lk={lk} d={d}: "
+        f"{_fmt(ms, plain, lib, bound, flops)} "
+        f"err dq/dk/dv {[f'{e:.2e}' for e, _ in errs]}")
+    torch.cuda.empty_cache()
+
+
 def phase_kernels():
     import torch
 
@@ -194,7 +279,6 @@ def phase_kernels():
     heads = 8
     fwd, bwd = _totals(), _totals()
     sdpa = torch.ops.aten._scaled_dot_product_flash_attention
-    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
     for L, d in ((4096, 40), (1024, 80), (256, 160)):
         reps = 5 if L == 4096 else 20
         scale = d ** -0.5
@@ -224,39 +308,17 @@ def phase_kernels():
             torch.cuda.empty_cache()
 
         for b, extra in BWD_CASES:
-            lk = L + extra
-            q, k, v, do = _inputs(b, heads, L, lk, d, seed=L + lk + b + 1)
-            o, lse = fa.flash_attention_fwd(q, k, v)
-            got = fa.flash_attention_bwd(q, k, v, lse, o, do)
-            want = fa.attention_bwd_plain(q, k, v, lse, o, do)
-            torch.cuda.synchronize()
-            errs = [_err(g_, w_) for g_, w_ in zip(got, want)]
-            if not all(ok for _, ok in errs):
-                fail(f"backward disagrees at B={b} L={L} Lk={lk} d={d}: "
-                     f"{[e for e, _ in errs]}")
-            bh = b * heads
-            flops = 10 * bh * L * lk * d
-            nbytes = 2 * bh * d * (3 * L + 2 * lk) + 4 * bh * L + 2 * bh * d * (L + 2 * lk)
-            bound = _bound(bwd, flops, nbytes)
-            ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, lse, o, do), reps)
-            plain = cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, lse, o, do), reps)
-            lib = None
-            try:
-                outs = sdpa(q, k, v, 0.0, False, False, scale=scale)
-            except (RuntimeError, TypeError) as exc:  # a yardstick only
-                bwd["library_ok"] = False
-                log(f"  library backward unavailable: {type(exc).__name__}: {exc}")
-            else:
-                lo, llse, cq, ck, mq, mk_, seed_, off_ = outs[:8]
-                lib = _library_ms(bwd, "backward", lambda: sdpa_bwd(
-                    do, q, k, v, lo, llse, cq, ck, mq, mk_, 0.0, False, seed_, off_,
-                    scale=scale), reps)
-            _add(bwd, ms, plain, bound, lib, max(e for e, _ in errs))
-            log(f"  bwd B={b} h={heads} Lq={L} Lk={lk} d={d}: "
-                f"{_fmt(ms, plain, lib, bound, flops)} "
-                f"err dq/dk/dv {[f'{e:.2e}' for e, _ in errs]}")
-            del q, k, v, do, o, lse, got, want
-            torch.cuda.empty_cache()
+            _check_bwd(bwd, b, heads, L, L + extra, d, reps)
+    default_ms = bwd["ms"]
+    # The fused-heads gradient (phase 5) splits heads and calls the backward at
+    # the KV lengths the default dispatch keeps on plain math: the 77-token
+    # cross-attention of every level and the 64-token mid block (KV 64, and 94
+    # with the fuser), at the guidance batch.
+    for L, lk, d in BWD_SHORT_KV:
+        _check_bwd(bwd, 2, heads, L, lk, d, 20)
+    log(f"  bwd: {default_ms:.3f} ms over the {3 * len(BWD_CASES)} shapes of the default "
+        f"paths, {bwd['ms'] - default_ms:.3f} ms over the {len(BWD_SHORT_KV)} short-KV "
+        f"shapes of the opt-in path")
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
 
 
@@ -303,6 +365,158 @@ def phase_sam_kernel():
         del q, k, v, bias_h, bias_w, o
         torch.cuda.empty_cache()
     return t
+
+
+# The opt-in path's shapes (SD1.x at 512x512: 8 heads; (tokens, width) =
+# (4096, 320), (1024, 640), (256, 1280), (64, 1280); 30 grounding tokens).
+# Packed forward: what the fused-heads size rule refuses, (Lq, Lk - Lq).
+PACKED_CASES = [(4096, 0), (4096, 30)]
+# Fused-heads forward (Lq, Lk, heads * d): self and fuser attention of the
+# three lower levels, then the 77-token cross-attention of every level.
+FUSED_CASES = [(1024, 1024, 640), (1024, 1054, 640), (256, 256, 1280), (256, 286, 1280),
+               (64, 64, 1280), (64, 94, 1280),
+               (4096, 77, 320), (1024, 77, 640), (256, 77, 1280), (64, 77, 1280)]
+# GroupNorm inputs (C, N) of a full UNet forward, and those of the guidance
+# forward (which ends after up block 1), whose backward reads f32 pairs.
+STAT_CASES = [(320, 4096), (640, 4096), (960, 4096),
+              (320, 1024), (640, 1024), (960, 1024), (1280, 1024), (1920, 1024),
+              (640, 256), (1280, 256), (1920, 256), (2560, 256), (1280, 64), (2560, 64)]
+STAT_BWD_CASES = [(320, 4096), (320, 1024), (640, 1024), (640, 256), (1280, 256),
+                  (1920, 256), (2560, 256), (1280, 64), (2560, 64)]
+OPTIN_BATCHES = (8, 4, 2)
+
+
+def phase_optin_kernels():
+    """The three opt-in kernels against their plain versions, with times."""
+    import torch
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
+
+    heads = 8
+    packed, fused, stats = _totals(), _totals(), _totals()
+    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+
+    d = 40
+    per_head_total = 0.0
+    for L, extra in PACKED_CASES:
+        for b in OPTIN_BATCHES:
+            lk = L + extra
+            q, k, v, _ = _inputs(b, heads, L, lk, d, seed=L + lk + b + 2)
+            o, lse = fa.flash_attention_fwd_packed(q, k, v)
+            o_ref, lse_ref = fa.attention_fwd_packed_plain(q, k, v)
+            torch.cuda.synchronize()
+            e_o, ok_o = _err(o, o_ref)
+            e_l = (lse - lse_ref).abs().max().item()
+            if not (ok_o and e_l <= TOL_LSE):
+                fail(f"packed forward disagrees at B={b} L={L} Lk={lk} d={d}: |dO|={e_o} "
+                     f"|dLSE|={e_l}")
+            del o, lse, o_ref, lse_ref
+            bh = b * heads
+            flops = 4 * bh * L * lk * d
+            nbytes = 2 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
+            bound = _bound(packed, flops, nbytes)
+            # Per-head and packed kernels in turns on the same inputs.
+            turns = [cuda_ms(lambda: fn(q, k, v), 5)
+                     for fn in (fa.flash_attention_fwd, fa.flash_attention_fwd_packed,
+                                fa.flash_attention_fwd_packed, fa.flash_attention_fwd)]
+            per_head, ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            per_head_total += per_head
+            plain = cuda_ms(lambda: fa.attention_fwd_packed_plain(q, k, v), 5)
+            lib = _library_ms(packed, "packed forward", lambda: sdpa(
+                q, k, v, 0.0, False, False, scale=d ** -0.5), 5)
+            _add(packed, ms, plain, bound, lib, e_o)
+            log(f"  packed B={b} h={heads} Lq={L} Lk={lk} d={d}: "
+                f"{_fmt(ms, plain, lib, bound, flops)}, per-head kernel {per_head:.3f} ms "
+                f"(turns {[round(t, 3) for t in turns]}) err O {e_o:.2e} LSE {e_l:.2e}")
+            del q, k, v
+            torch.cuda.empty_cache()
+    log(f"  packed: {packed['ms']:.3f} ms over {len(PACKED_CASES) * len(OPTIN_BATCHES)} "
+        f"shapes, the per-head kernel {per_head_total:.3f} ms on the same inputs")
+
+    for L, lk, hd in FUSED_CASES:
+        d = hd // heads
+        for b in OPTIN_BATCHES:
+            gen = torch.Generator(device="cuda").manual_seed(L + lk + hd + b)
+
+            def mk(rows):
+                return torch.randn((b, rows, hd), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+
+            qf, kf, vf = mk(L), mk(lk), mk(lk)
+            o, lse = fa.flash_attention_fwd_fusedheads(qf, kf, vf, heads)
+            o_ref, lse_ref = fa.attention_fwd_fusedheads_plain(qf, kf, vf, heads)
+            torch.cuda.synchronize()
+            e_o, ok_o = _err(o, o_ref)
+            e_l = (lse - lse_ref).abs().max().item()
+            if not (ok_o and e_l <= TOL_LSE):
+                fail(f"fused-heads forward disagrees at B={b} Lq={L} Lk={lk} hd={hd}: "
+                     f"|dO|={e_o} |dLSE|={e_l}")
+            del o, lse, o_ref, lse_ref
+            flops = 4 * b * heads * L * lk * d
+            nbytes = 2 * b * hd * (2 * L + 2 * lk) + 4 * b * heads * L
+            bound = _bound(fused, flops, nbytes)
+            ms = cuda_ms(lambda: fa.flash_attention_fwd_fusedheads(qf, kf, vf, heads), 20)
+            plain = cuda_ms(lambda: fa.attention_fwd_fusedheads_plain(qf, kf, vf, heads), 20)
+            # SDPA's flash forward on the same memory: (B, h, L, d) views.
+            q4, k4, v4 = (t.view(b, -1, heads, d).transpose(1, 2) for t in (qf, kf, vf))
+            lib = _library_ms(fused, "fused-heads forward", lambda: sdpa(
+                q4, k4, v4, 0.0, False, False, scale=d ** -0.5), 20)
+            _add(fused, ms, plain, bound, lib, e_o)
+            log(f"  fusedheads B={b} h={heads} Lq={L} Lk={lk} hd={hd}: "
+                f"{_fmt(ms, plain, lib, bound, flops)}, {nbytes / ms / 1e6:.1f} GB/s, "
+                f"err O {e_o:.2e} LSE {e_l:.2e}")
+            del qf, kf, vf, q4, k4, v4
+            torch.cuda.empty_cache()
+
+    def stat_case(b, c, n, dtype, same):
+        gen = torch.Generator(device="cuda").manual_seed(c + n + b)
+
+        def mk():
+            return (torch.randn((b, c, n), generator=gen, device="cuda") + 0.5).to(dtype)
+
+        a = mk()
+        other = a if same else mk()
+        got = gn.pair_stats(a, other)
+        want = gn.pair_stats_plain(a, other)
+        torch.cuda.synchronize()
+        errs = [_err(g_, w_, TOL_SUMS) for g_, w_ in zip(got, want)]
+        if not all(ok for _, ok in errs):
+            fail(f"pair_stats disagrees at B={b} C={c} N={n} {dtype}: "
+                 f"{[e for e, _ in errs]}")
+        elems = b * c * n
+        nbytes = elems * a.element_size() * (1 if same else 2) + 2 * 4 * b * c
+        bound = _bound(stats, 3 * elems, nbytes, PEAK_F32_FLOPS)
+        ms = cuda_ms(lambda: gn.pair_stats(a, other), 20)
+        plain = cuda_ms(lambda: gn.pair_stats_plain(a, other), 20)
+        lib = _library_ms(stats, "pair_stats", lambda: (
+            a.sum(-1, dtype=torch.float32), (a * other).sum(-1, dtype=torch.float32)), 20)
+        # Relative error of the sums, so that sizes compare.
+        rel = max(e / max(w_.abs().max().item(), 1e-6) for (e, _), w_ in zip(errs, want))
+        _add(stats, ms, plain, bound, lib, max(e for e, _ in errs))
+        log(f"  pair_stats B={b} C={c} N={n} {str(dtype).split('.')[-1]} "
+            f"{'(x, x)' if same else '(a, b)'}: {ms:.4f} ms (plain {plain:.4f}, library "
+            f"{lib if lib is None else round(lib, 4)} [two calls], bound {bound:.5f}, "
+            f"{nbytes / ms / 1e6:.1f} GB/s) rel err {rel:.2e}")
+
+    # What one call costs the host (one allocation, the ctypes launch): the
+    # floor under the device times below when calls are not queued ahead.
+    x = torch.zeros((2, 1280, 64), device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        gn.pair_stats(x, x)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"  pair_stats host time per call (B=2 C=1280 N=64): {host_us:.1f} us")
+    for c, n in STAT_CASES:
+        for b in OPTIN_BATCHES:
+            stat_case(b, c, n, torch.bfloat16, True)
+    for c, n in STAT_BWD_CASES:
+        stat_case(2, c, n, torch.float32, False)
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd_packed": packed, "flash_attention_fwd_fusedheads": fused,
+            "pair_stats": stats}
 
 
 def _expected_launches(cfg, num_steps, fuser_beta, guidance_iters):
@@ -369,15 +583,132 @@ def _profile_summary(prof, wall: float, path: str) -> None:
         log(f"  {ms:9.1f} ms {100 * ms / busy:5.1f}% {n:6d}x  {k[:90]}")
 
 
-def _ladder_max(budgets, max_index_step, steps, early, fuser_steps=0) -> int:
-    """Backward launches if every guided step of a pass runs its full budget."""
-    return sum((budgets[i] if i < len(budgets) else budgets[-1])
-               * early * (2 if i < fuser_steps else 1)
+def _ladder_max(budgets, max_index_step, steps, per_iteration) -> int:
+    """Backward launches if every guided step of a pass runs its full budget;
+    per_iteration(step): the launches of one guidance iteration at `step`."""
+    return sum((budgets[i] if i < len(budgets) else budgets[-1]) * per_iteration(i)
                for i in range(min(max_index_step, steps)))
 
 
-def _drive(label, run, cfg, steps, fuser_beta, ladders, expected_sam, profile=None,
-           segmenter=None):
+def _default_expect(cfg, steps, fuser_beta, ladders, expected_sam):
+    """Expected launch counts of a path on the default dispatch (options
+    off), given the guidance iterations it ran; ladders: (iteration budgets,
+    max_index_step) of each guided pass."""
+
+    def expect(iters):
+        fwd, bwd, full, early, fuser_steps = _expected_launches(cfg, steps, fuser_beta, iters)
+        ladder_max = sum(
+            _ladder_max(budgets, max_index, steps,
+                        lambda i: early * (2 if i < fuser_steps else 1))
+            for budgets, max_index in ladders)
+        return ({"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
+                 "flash_attention_fwd_packed": 0, "flash_attention_fwd_fusedheads": 0,
+                 "pair_stats": 0, "sam_attention": expected_sam}, ladder_max,
+                f"full UNet {full} flash layers per forward, early-exit {early}")
+
+    return expect
+
+
+def _unet_layout(cfg):
+    """The UNet's transformer blocks in forward order, each (key, tokens,
+    width), the GroupNorm count before and including each one's block, and
+    the index just past the guidance forward's last block."""
+    from lmdx_torch.sampling.guidance import default_guidance_keys
+
+    ucfg = cfg.unet
+    res, ch = cfg.latent_height, ucfg.block_out_channels
+    levels = len(ch)
+    blocks, norms_after, norms = [], {}, 0
+    for i, kind in enumerate(ucfg.down_block_types):
+        for j in range(ucfg.layers_per_block):
+            norms += 2
+            if kind == "CrossAttnDownBlock2D":
+                blocks.append((("down", i, j, 0), (res >> i) ** 2, ch[i]))
+                norms += 1
+        norms_after[("down", i)] = norms
+    norms += 2 * 2 + 1
+    blocks.append((("mid", 0, 0, 0), (res >> (levels - 1)) ** 2, ch[-1]))
+    norms_after[("mid", 0)] = norms
+    for i, kind in enumerate(ucfg.up_block_types):
+        level = levels - 1 - i
+        for j in range(ucfg.layers_per_block + 1):
+            norms += 2
+            if kind == "CrossAttnUpBlock2D":
+                blocks.append((("up", i, j, 0), (res >> level) ** 2, ch[level]))
+                norms += 1
+        norms_after[("up", i)] = norms
+    last_up = max(k[1] for k in default_guidance_keys(ucfg) if k[0] == "up")
+    return blocks, norms + 1, norms_after[("up", last_up)], last_up
+
+
+def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
+    """Expected launch counts of the LMD+ path with every option on. The
+    dispatch: an untapped attention runs the fused-heads kernel where
+    `fusedheads_supported` holds, else the per-head gate and there the packed
+    kernel; tapped cross-attentions stay plain math; every GroupNorm launches
+    `pair_stats` once forward and once backward. The backward kernel runs once
+    for every kernel forward inside a guidance iteration."""
+    import torch
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.sampling.guidance import default_guidance_keys
+
+    ucfg = cfg.unet
+    blocks, norms_full, norms_early, last_up = _unet_layout(cfg)
+    early_blocks = [b for b in blocks if not (b[0][0] == "up" and b[0][1] > last_up)]
+    guidance_keys = set(default_guidance_keys(ucfg))
+    ctx_len, heads = cfg.clip.max_length, ucfg.num_attention_heads[0]
+
+    def counts(layers, tapped, fuser):
+        """(packed, fused-heads) launches of one forward over `layers`."""
+        packed = fused = 0
+        for key, n, width in layers:
+            calls = [(n, n)] + ([(n, n + ucfg.gligen_max_objs)] if fuser else [])
+            if key not in tapped:
+                calls.append((n, ctx_len))
+            for lq, lk in calls:
+                qf = torch.empty((1, lq, width), dtype=torch.bfloat16, device="meta")
+                kf = torch.empty((1, lk, width), dtype=torch.bfloat16, device="meta")
+                if fa.fusedheads_supported(qf, kf, heads):
+                    fused += 1
+                elif lk >= 256:
+                    packed += 1
+                else:
+                    fail(f"optin: attention {key} {lq}x{lk} would fall to plain math")
+        return packed, fused
+
+    fuser_steps = int(fuser_beta * steps)
+
+    def expect(iters):
+        packed = fused = bwd = 0
+        for tapped in (set(per_box_taps), set()):       # per-box pass, overall pass
+            for fuser, n_steps in ((True, fuser_steps), (False, steps - fuser_steps)):
+                p, f = counts(blocks, tapped, fuser)
+                packed += n_steps * p
+                fused += n_steps * f
+        n_iters = 0
+        for step, n in iters:
+            p, f = counts(early_blocks, guidance_keys, step < fuser_steps)
+            packed += n * p
+            fused += n * f
+            bwd += n * (p + f)
+            n_iters += n
+        budgets, max_index = ladder
+        ladder_max = _ladder_max(
+            budgets, max_index, steps,
+            lambda i: sum(counts(early_blocks, guidance_keys, i < fuser_steps)))
+        stats = 2 * steps * norms_full + n_iters * 2 * norms_early
+        return ({"flash_attention_fwd": 0, "flash_attention_bwd": bwd,
+                 "flash_attention_fwd_packed": packed,
+                 "flash_attention_fwd_fusedheads": fused, "pair_stats": stats,
+                 "sam_attention": 0}, ladder_max,
+                f"{norms_full} GroupNorms per full forward, {norms_early} per guidance "
+                f"forward and as many in its backward, {n_iters} guidance iterations")
+
+    return expect
+
+
+def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None):
     """Drives one main path through its entry point and checks it.
 
     `run()` is called once with every launch count set to 0 just before it;
@@ -385,17 +716,17 @@ def _drive(label, run, cfg, steps, fuser_beta, ladders, expected_sam, profile=No
     iterations per step, the decoded latents' finiteness and the segmenter's
     wall time are recorded (and with `profile`, a torch.profiler breakdown
     is written there). Checks the images (uint8, cfg-sized, non-constant,
-    from finite latents), that the flash launches equal what the schedule and
-    the recorded iterations imply (the backward also within the ladders'
-    maximum; ladders: (iteration budgets, max_index_step) of each guided
-    pass) and that SAM launched `expected_sam` times. Returns the results and
-    the launch counts."""
+    from finite latents) and that every kernel's launches equal what
+    `expect(iterations)` says the dispatch, the schedule and the recorded
+    iterations imply (the backward also within the ladders' maximum).
+    Returns the results and the launch counts."""
     import numpy as np
     import torch
 
     from lmdx_torch.methods import base
     from lmdx_torch.methods import batch as batch_lib
     from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
     from lmdx_torch.nn.kernels import sam_attention as sa
     from lmdx_torch.sampling import guidance as guidance_lib
 
@@ -438,6 +769,7 @@ def _drive(label, run, cfg, steps, fuser_beta, ladders, expected_sam, profile=No
     try:
         fa.reset_launch_counts()
         sa.reset_launch_counts()
+        gn.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         prof = None
@@ -449,7 +781,7 @@ def _drive(label, run, cfg, steps, fuser_beta, ladders, expected_sam, profile=No
         results = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {**fa.LAUNCHES, **sa.LAUNCHES}
+        launches = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
         if prof is not None:
             prof.__exit__(None, None, None)
             _profile_summary(prof, wall, profile)
@@ -473,25 +805,17 @@ def _drive(label, run, cfg, steps, fuser_beta, ladders, expected_sam, profile=No
     if len(passes) != 2:
         fail(f"{label}: {len(passes)} sampling passes, expected 2")
     iters = [(i, n) for pass_iters in passes for i, n in enumerate(pass_iters)]
-    expected_fwd, expected_bwd, full, early, fuser_steps = _expected_launches(
-        cfg, steps, fuser_beta, iters)
-    ladder_max = sum(_ladder_max(budgets, max_index, steps, early, fuser_steps)
-                     for budgets, max_index in ladders)
+    expected, ladder_max, note = expect(iters)
     log(f"{label}: guidance iterations per step, per-box pass {passes[0]}, overall "
         f"pass {passes[1]}")
-    log(f"{label}: launches {launches}; expected forward {expected_fwd} (full UNet "
-        f"{full} per forward, early-exit {early}), backward {expected_bwd} (ladder "
-        f"max {ladder_max}), sam_attention {expected_sam}")
-    if launches["flash_attention_fwd"] != expected_fwd:
-        fail(f"{label}: forward launches {launches['flash_attention_fwd']} != "
-             f"{expected_fwd}")
-    if not (0 < launches["flash_attention_bwd"] <= ladder_max
-            and launches["flash_attention_bwd"] == expected_bwd):
-        fail(f"{label}: backward launches {launches['flash_attention_bwd']} "
-             f"(expected {expected_bwd}, ladder max {ladder_max})")
-    if launches["sam_attention"] != expected_sam:
-        fail(f"{label}: sam_attention launches {launches['sam_attention']} != "
-             f"{expected_sam}")
+    log(f"{label}: launches {launches}; expected {expected} ({note}; backward ladder "
+        f"max {ladder_max})")
+    for name, want in expected.items():
+        if launches[name] != want:
+            fail(f"{label}: {name} launches {launches[name]} != {want}")
+    if not 0 < launches["flash_attention_bwd"] <= ladder_max:
+        fail(f"{label}: backward launches {launches['flash_attention_bwd']} outside "
+             f"(0, ladder max {ladder_max}]")
     seg = f", SAM segment wall {sum(seg_walls):.3f} s" if segmenter is not None else ""
     log(f"{label}: {len(results)} images x 2 boxes, {cfg.height}x{cfg.width}, {steps} "
         f"DDIM steps: wall {wall:.2f} s, {len(results) / wall:.4f} images/s{seg}, peak "
@@ -517,8 +841,10 @@ def phase_main_path(steps: int, profile: str | None = None):
         "main path",
         lambda: run_lmd_plus_batch(SPECS, bundle, bg_seeds=[1, 2],
                                    num_inference_steps=steps),
-        bundle.config, steps, 0.4, [(p.overall_max_iter, p.overall_max_index_step)],
-        expected_sam=0, profile=profile)
+        bundle.config, steps,
+        _default_expect(bundle.config, steps, 0.4,
+                        [(p.overall_max_iter, p.overall_max_index_step)], 0),
+        profile=profile)
     for r in results:
         if r.aux["frozen_mask"].sum() <= 0:
             fail("main path: empty frozen mask")
@@ -552,9 +878,11 @@ def phase_lmd(steps: int, profile: str | None = None):
         "lmd",
         lambda: run_lmd_batch(SPECS, bundle, segmenter=segmenter, bg_seeds=[1, 2],
                               num_inference_steps=steps, return_so_images=True),
-        cfg, steps, 0.0,
-        [(p.max_iter, p.max_index_step), (p.overall_max_iter, p.overall_max_index_step)],
-        expected_sam, profile=profile, segmenter=segmenter)
+        cfg, steps,
+        _default_expect(cfg, steps, 0.0, [(p.max_iter, p.max_index_step),
+                                          (p.overall_max_iter, p.overall_max_index_step)],
+                        expected_sam),
+        profile=profile, segmenter=segmenter)
     areas = []
     for r in results:
         for m in r.aux["masks"]:
@@ -587,15 +915,144 @@ def phase_lmd(steps: int, profile: str | None = None):
     return launches
 
 
+def _optin_unet_check(on, off):
+    """One UNet forward and one gradient of the guidance taps w.r.t. the
+    latents, options on against options off, on the same weights and inputs
+    (batch 2, GLIGEN on). Also holds every shape the opt-in wrappers are given
+    against the tables phase 2 checked."""
+    import torch
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
+    from lmdx_torch.nn.unet import apply_unet
+    from lmdx_torch.sampling.guidance import GuidanceSpec, default_guidance_keys
+
+    cfg = on.config
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    lat = randn(2, cfg.latent_height, cfg.latent_width, 4)
+    ctx = randn(2, cfg.clip.max_length, cfg.unet.cross_attention_dim)
+    objs = randn(2, cfg.unet.gligen_max_objs, cfg.unet.cross_attention_dim)
+    spec = GuidanceSpec(keys=default_guidance_keys(cfg.unet)).tap_spec
+
+    seen = {"packed": set(), "fused": set(), "bwd": set(), "stats": set()}
+    originals = (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
+                 fa.flash_attention_bwd, gn.pair_stats)
+
+    def packed(q, k, v):
+        seen["packed"].add((q.shape[2], k.shape[2] - q.shape[2]))
+        return originals[0](q, k, v)
+
+    def fused(qf, kf, vf, heads):
+        seen["fused"].add((qf.shape[1], kf.shape[1], qf.shape[2]))
+        return originals[1](qf, kf, vf, heads)
+
+    def bwd(q, k, v, *rest):
+        seen["bwd"].add((q.shape[2], k.shape[2], q.shape[3]))
+        return originals[2](q, k, v, *rest)
+
+    def stats(a, b):
+        seen["stats"].add((a.shape[1], a.shape[2], a.dtype, a is b))
+        return originals[3](a, b)
+
+    def run(bundle):
+        with torch.no_grad():
+            eps = apply_unet(bundle.unet, lat, 501, ctx, objs=objs)[0]
+        x = lat.clone().requires_grad_(True)
+        taps = apply_unet(bundle.unet, x, 501, ctx, objs=objs, taps=spec,
+                          stop_after_taps=True)[1]
+        loss = sum(t.float().square().sum() for t in taps.values())
+        return eps, torch.autograd.grad(loss, x)[0]
+
+    (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
+     fa.flash_attention_bwd, gn.pair_stats) = packed, fused, bwd, stats
+    try:
+        eps_on, grad_on = run(on)
+    finally:
+        (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
+         fa.flash_attention_bwd, gn.pair_stats) = originals
+    eps_off, grad_off = run(off)
+    torch.cuda.synchronize()
+    for what, a, b in (("eps", eps_on, eps_off), ("latent gradient", grad_on, grad_off)):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            fail(f"optin: non-finite {what}")
+        diff, ok = _err(a, b, TOL_OPTIN)
+        ref = b.abs().max().item()
+        log(f"optin: UNet {what} options on vs off: max|diff| {diff:.3e} = "
+            f"{diff / ref:.3e} of max|off| {ref:.3e} (limit {TOL_OPTIN:g})")
+        if not ok:
+            fail(f"optin: UNet {what} differs by {diff / ref:.3e} of max|off|")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    checked = {
+        "packed": set(PACKED_CASES), "fused": set(FUSED_CASES),
+        "bwd": set(BWD_SHORT_KV) | {(L, L + e, d) for L, d in ((4096, 40), (1024, 80),
+                                                                  (256, 160))
+                                    for b, e in BWD_CASES if b == 2},
+        "stats": ({(c, n, bf16, True) for c, n in STAT_CASES}
+                  | {(c, n, f32, False) for c, n in STAT_BWD_CASES})}
+    for name, shapes in seen.items():
+        if not shapes or not shapes <= checked[name]:
+            fail(f"optin: {name} was given shapes phase 2 did not check: "
+                 f"{sorted(shapes - checked[name], key=str)} (seen {len(shapes)})")
+    log(f"optin: every shape the opt-in wrappers were given was checked in phase 2 "
+        f"({ {k: len(v) for k, v in seen.items()} })")
+
+
+def phase_optin(steps: int, profile: str | None = None):
+    import torch
+
+    from lmdx_torch.config import ALL_KERNELS
+    from lmdx_torch.methods._grounded import GroundedParams
+    from lmdx_torch.methods.batch import run_lmd_plus_batch
+    from lmdx_torch.runtime import models
+    from lmdx_torch.sampling.guidance import default_guidance_keys, default_obj_attn_key
+
+    key = "gligen/diffusers-generation-text-box"
+    t0 = time.perf_counter()
+    bundle = models.load_bundle(key, seed=0, device="cuda", kernels=ALL_KERNELS)
+    off = models.load_bundle(key, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"optin: bundles with every option on and off (random weights, seed 0) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _optin_unet_check(bundle, off)
+    del off
+    torch.cuda.empty_cache()
+
+    cfg = bundle.config
+    p = GroundedParams(num_inference_steps=steps)
+    per_box_taps = (default_obj_attn_key(cfg.unet), *default_guidance_keys(cfg.unet))
+    results, launches = _drive(
+        "optin",
+        lambda: run_lmd_plus_batch(SPECS, bundle, bg_seeds=[1, 2],
+                                   num_inference_steps=steps),
+        cfg, steps,
+        _optin_expect(cfg, steps, 0.4, (p.overall_max_iter, p.overall_max_index_step),
+                      per_box_taps),
+        profile=profile)
+    for r in results:
+        if r.aux["frozen_mask"].sum() <= 0:
+            fail("optin: empty frozen mask")
+    del bundle
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
                     help="DDIM steps of the main path (depth only; width is full)")
     ap.add_argument("--lmd-steps", type=int, default=50,
                     help="DDIM steps of the LMD path (depth only; width is full)")
+    ap.add_argument("--optin-steps", type=int, default=50,
+                    help="DDIM steps of the opt-in LMD+ path (depth only; a rehearsal "
+                         "flag: the check is the 50 steps of the default)")
     ap.add_argument("--profile", metavar="PATH", default=None,
-                    help="trace the LMD+ and LMD paths with torch.profiler and write "
-                         "the device time by kernel to PATH and PATH with _lmd before "
+                    help="trace the three paths with torch.profiler and write the device "
+                         "time by kernel to PATH and to PATH with _lmd and _optin before "
                          "its extension (the wall times then include the tracing cost)")
     args = ap.parse_args()
 
@@ -620,21 +1077,30 @@ def main() -> None:
     phase_build()
     kernels = phase_kernels()
     kernels["sam_attention"] = phase_sam_kernel()
+    kernels.update(phase_optin_kernels())
     plus = phase_main_path(args.steps, args.profile)
-    lmd_profile = None
+    lmd_profile = optin_profile = None
     if args.profile:
         root, ext = os.path.splitext(args.profile)
-        lmd_profile = f"{root}_lmd{ext}"
+        lmd_profile, optin_profile = f"{root}_lmd{ext}", f"{root}_optin{ext}"
     lmd = phase_lmd(args.lmd_steps, lmd_profile)
-    launches = {name: plus[name] + lmd[name] for name in kernels}
-    log(f"launches: LMD+ path {plus}, LMD path {lmd}")
+    optin = phase_optin(args.optin_steps, optin_profile)
+    launches = {name: plus[name] + lmd[name] + optin[name] for name in kernels}
+    log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
                "flash_attention_bwd": ("lmdx_torch/csrc/flash_bwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:384"),
                "sam_attention": ("lmdx_torch/csrc/sam_attention.cu",
-                                 "lmdx/nn/pallas/sam_attention.py:101")}
+                                 "lmdx/nn/pallas/sam_attention.py:101"),
+               "flash_attention_fwd_packed": ("lmdx_torch/csrc/flash_fwd_packed.cu",
+                                              "lmdx/nn/pallas/flash_attention.py:211"),
+               "flash_attention_fwd_fusedheads": (
+                   "lmdx_torch/csrc/flash_fwd_fusedheads.cu",
+                   "lmdx/nn/pallas/flash_attention.py:622"),
+               "pair_stats": ("lmdx_torch/csrc/pair_stats.cu",
+                              "lmdx/nn/pallas/group_norm.py:60")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -643,10 +1109,14 @@ def main() -> None:
          "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
          "library_ms": t["library_ms"] if t["library_ok"] else None}
         for name, t in kernels.items()]}
+    n_opt = len(OPTIN_BATCHES)
     log(f"kernel times: ms, plain_ms, bound_ms and library_ms are sums of one call "
         f"at each shape above ({3 * len(FWD_CASES)} for the flash forward, "
-        f"{3 * len(BWD_CASES)} for the backward, 2 for SAM); launches are those of "
-        f"the LMD+ and LMD paths together")
+        f"{3 * len(BWD_CASES)} + {len(BWD_SHORT_KV)} for the backward, 2 for SAM, "
+        f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
+        f"for the fused-heads forward, {len(STAT_CASES) * n_opt} + {len(STAT_BWD_CASES)} "
+        f"for pair_stats); launches are those of the LMD+, LMD and opt-in LMD+ paths "
+        f"together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -13,6 +13,29 @@ import torch
 
 
 @dataclass(frozen=True)
+class KernelOptions:
+    """Which opt-in kernels the UNet runs (the JAX package chooses them with
+    LMDX_PACKED_ATTENTION, LMDX_FUSED_HEADS and LMDX_PALLAS_GROUPNORM; the
+    port takes them as a constructor argument and reads no environment).
+
+    packed_attention: the per-head flash forward takes heads in groups
+        (`flash_attention_fwd_packed`).
+    fused_heads: untapped attention layers run on the projection layout
+        `(B, L, heads * head_dim)` where `fusedheads_supported` allows.
+    fused_group_norm: the UNet's GroupNorms take their statistics from the
+        `pair_stats` kernel (`FusedGroupNorm`).
+    All off is the default path."""
+
+    packed_attention: bool = False
+    fused_heads: bool = False
+    fused_group_norm: bool = False
+
+
+ALL_KERNELS = KernelOptions(packed_attention=True, fused_heads=True,
+                            fused_group_norm=True)
+
+
+@dataclass(frozen=True)
 class CLIPTextConfig:
     vocab_size: int = 49408
     hidden_size: int = 768

@@ -1,21 +1,28 @@
-// The attention forward body shared by flash_fwd.cu and sam_attention.cu.
+// The attention forward body shared by flash_fwd.cu, flash_fwd_packed.cu,
+// flash_fwd_fusedheads.cu and sam_attention.cu.
 //
-// O = softmax(Q K^T * scale + bias) V, and optionally the row log-sum-exp
-// LSE (in units of the biased, scaled scores). q: (BH, Lq, d), k/v:
-// (BH, Lk, d), o: (BH, Lq, d), all bf16 row-major; lse: (BH, Lq) f32 or null.
+// O = softmax(Q K^T * scale + bias) V for one head, and optionally the row
+// log-sum-exp LSE (in units of the biased, scaled scores). The caller hands
+// the body this head's q (Lq, d), k/v (Lk, d) and o (Lq, d), bf16, with the
+// distance between rows of each (d for a (BH, L, d) tensor, heads * d for
+// the projection layout (B, L, heads * d)), and its lse row (Lq) f32 or null.
 //
-// Each block (one per 64-row q tile and batch*head) walks the KV in 64-row
-// tiles with an online softmax: running row max m and denominator l in
-// shared memory, the f32 output accumulator rescaled by exp(m_old - m_new)
-// before each P V product. Scores, probabilities and the accumulator stay in
-// shared memory. Columns past Lk in the last tile are masked to -inf; rows
-// past Lq are zero-filled on the load and not stored; head dims are
-// zero-padded to a multiple of 16. The products are flash_common.cuh's WMMA
-// tiles with f32 accumulation; P is rounded to bf16 for the P V product.
+// Each block takes one 64-row q tile and walks the KV in 64-row tiles with
+// an online softmax: running row max m and denominator l in shared memory,
+// the f32 output accumulator rescaled by exp(m_old - m_new) before each P V
+// product. Scores, probabilities and the accumulator stay in shared memory.
+// Columns past Lk in the last tile are masked to -inf; rows past Lq are
+// zero-filled on the load and not stored; head dims are zero-padded to a
+// multiple of 16. The products are flash_common.cuh's WMMA tiles with f32
+// accumulation; P is rounded to bf16 for the P V product. The row max starts
+// at m_init and the denominator is clamped from below at l_min (-inf and 0
+// give the plain softmax; the head-packed kernel passes its reference's
+// -1e30 and 1e-30).
 //
-// The bias is a policy type: NoBias (flash_fwd.cu) adds nothing and stages
-// nothing; RelPosBias (sam_attention.cu) stages the q tile's rows of SAM's
-// decomposed rel-pos bias in shared memory and adds two f32 values by index.
+// The bias is a policy type: NoBias (the flash kernels) adds nothing and
+// stages nothing; RelPosBias (sam_attention.cu) stages the q tile's rows of
+// SAM's decomposed rel-pos bias in shared memory and adds two f32 values by
+// index.
 #pragma once
 
 #include "flash_common.cuh"
@@ -103,14 +110,38 @@ struct RelPosBias {
   }
 };
 
-// The body of one block. Each source wraps it in a __global__ kernel of its
-// own name (flash_fwd_kernel, sam_attention_kernel), so profiles tell them
-// apart, and launches that through launch_attention_fwd.
+// One head's pointers and row strides (in elements) for the body.
+struct HeadView {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  float* lse;  // this head's (Lq) row, or null
+  int ldq, ldkv, ldo;
+  int bh;  // batch*head index, for the bias policy
+};
+
+// The head `bh` of row-major (BH, L, d) tensors and a (BH, Lq) lse.
+__device__ inline HeadView head_of_bhld(const bf16* q, const bf16* k, const bf16* v,
+                                        bf16* o, float* lse, int bh, int Lq, int Lk,
+                                        int d) {
+  return {q + (size_t)bh * Lq * d,
+          k + (size_t)bh * Lk * d,
+          v + (size_t)bh * Lk * d,
+          o + (size_t)bh * Lq * d,
+          lse != nullptr ? lse + (size_t)bh * Lq : nullptr,
+          d, d, d, bh};
+}
+
+// The body of one block for the q tile at q0 of one head. Each source wraps
+// it in a __global__ kernel of its own name, so profiles tell them apart. A
+// kernel that runs it for several heads in turn puts a __syncthreads()
+// between them.
 template <class Bias>
-__device__ __forceinline__ void attention_fwd_body(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int Lq, int Lk, int d, int dp,
-    float scale, const Bias& bias) {
+__device__ __forceinline__ void attention_fwd_body(const HeadView& hv, int q0, int Lq,
+                                                   int Lk, int d, int dp, float scale,
+                                                   const Bias& bias, float m_init,
+                                                   float l_min) {
   extern __shared__ __align__(128) char smem[];
   const FwdLayout lay(dp, bias.cols());
   bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
@@ -124,25 +155,20 @@ __device__ __forceinline__ void attention_fwd_body(
   float* sA = reinterpret_cast<float*>(smem + lay.a);
   float* sB = reinterpret_cast<float*>(smem + lay.bias);
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kFwdBQ;
-  const bf16* qb = q + (size_t)bh * Lq * d;
-  const bf16* kb = k + (size_t)bh * Lk * d;
-  const bf16* vb = v + (size_t)bh * Lk * d;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_tile(sQ, lay.ldh, qb, q0, kFwdBQ, Lq, d, dp);
-  bias.stage(sB, bh, q0);
+  load_tile_strided(sQ, lay.ldh, hv.q, hv.ldq, q0, kFwdBQ, Lq, d, dp);
+  bias.stage(sB, hv.bh, q0);
   zero_f32(sO, kFwdBQ * lay.ldo);
   for (int r = threadIdx.x; r < kFwdBQ; r += kThreads) {
-    sM[r] = -INFINITY;
+    sM[r] = m_init;
     sL[r] = 0.0f;
   }
 
   for (int k0 = 0; k0 < Lk; k0 += kFwdBK) {
     __syncthreads();  // the previous tile's readers of sK/sV/sP are done
-    load_tile(sK, lay.ldh, kb, k0, kFwdBK, Lk, d, dp);
-    load_tile(sV, lay.ldh, vb, k0, kFwdBK, Lk, d, dp);
+    load_tile_strided(sK, lay.ldh, hv.k, hv.ldkv, k0, kFwdBK, Lk, d, dp);
+    load_tile_strided(sV, lay.ldh, hv.v, hv.ldkv, k0, kFwdBK, Lk, d, dp);
     __syncthreads();
     warp_gemm<false, true>(sQ, lay.ldh, sK, lay.ldh, sS, lay.lds, kFwdBQ, kFwdBK, dp,
                            false);
@@ -182,37 +208,57 @@ __device__ __forceinline__ void attention_fwd_body(
   __syncthreads();
 
   for (int r = warp; r < kFwdBQ; r += kWarps) {
-    const float inv = 1.0f / sL[r];
+    const float inv = 1.0f / fmaxf(sL[r], l_min);
     for (int c = lane; c < dp; c += 32) sO[r * lay.ldo + c] *= inv;
   }
   __syncthreads();
-  store_tile(o + (size_t)bh * Lq * d, sO, lay.ldo, q0, kFwdBQ, Lq, d);
-  if (lse != nullptr) {
+  store_tile_strided(hv.o, hv.ldo, sO, lay.ldo, q0, kFwdBQ, Lq, d);
+  if (hv.lse != nullptr) {
     for (int r = threadIdx.x; r < kFwdBQ; r += kThreads) {
       const int gr = q0 + r;
-      if (gr < Lq) lse[(size_t)bh * Lq + gr] = sM[r] + logf(sL[r]);
+      if (gr < Lq) hv.lse[gr] = sM[r] + logf(fmaxf(sL[r], l_min));
     }
   }
+}
+
+// Shared memory of one block of the body; sets the kernel's dynamic limit.
+// Returns a cudaError_t as int and the size in *bytes.
+template <class Kernel>
+int prepare_attention_fwd(Kernel kernel, int dp, int bias_cols, size_t* bytes) {
+  const FwdLayout lay(dp, bias_cols);
+  *bytes = lay.total;
+  if (lay.total > 232448) return (int)cudaErrorInvalidValue;  // 227 KB a block
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)lay.total);
+}
+
+// A (BH, L, d) kernel: one block per 64-row q tile (blockIdx.x) and
+// batch*head (blockIdx.y), plain softmax.
+template <class Bias>
+__device__ __forceinline__ void attention_fwd_bhld(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int Lq, int Lk, int d, int dp,
+    float scale, const Bias& bias) {
+  attention_fwd_body(head_of_bhld(q, k, v, o, lse, blockIdx.y, Lq, Lk, d),
+                     blockIdx.x * kFwdBQ, Lq, Lk, d, dp, scale, bias, -INFINITY, 0.0f);
 }
 
 template <class Bias>
 using AttentionFwdKernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*, float*,
                                     int, int, int, int, float, Bias);
 
-// Sizes shared memory and launches `kernel` with one block per 64-row q tile
-// and batch*head. Returns a cudaError_t as int.
+// Sizes shared memory and launches a (BH, L, d) `kernel` with one block per
+// 64-row q tile and batch*head. Returns a cudaError_t as int.
 template <class Bias>
 int launch_attention_fwd(AttentionFwdKernel<Bias> kernel, const void* q, const void* k,
                          const void* v, void* o, void* lse, int bh, int lq, int lk, int d,
                          Bias bias, void* stream) {
   const int dp = round_up(d, 16);
-  const FwdLayout lay(dp, bias.cols());
-  if (lay.total > 232448) return (int)cudaErrorInvalidValue;  // 227 KB a block
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.total);
-  if (err != cudaSuccess) return (int)err;
+  size_t smem = 0;
+  const int err = prepare_attention_fwd(kernel, dp, bias.cols(), &smem);
+  if (err != 0) return err;
   const dim3 grid((lq + kFwdBQ - 1) / kFwdBQ, bh);
-  kernel<<<grid, kThreads, lay.total, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse), lq,
       lk, d, dp, 1.0f / sqrtf((float)d), bias);

@@ -31,7 +31,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int Lq, int Lk, int d, int dp, float scale,
                  NoBias bias) {
-  attention_fwd_body(q, k, v, o, lse, Lq, Lk, d, dp, scale, bias);
+  attention_fwd_bhld(q, k, v, o, lse, Lq, Lk, d, dp, scale, bias);
 }
 
 }  // namespace

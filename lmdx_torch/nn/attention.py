@@ -8,11 +8,19 @@ writes its probability map into the `taps_out` dict it is handed (the JAX
 side `sow`s into a "taps" collection). The maps keep their autograd graph, so
 the guidance loss back-propagates through them into the latents.
 
-Dispatch is the JAX side's: untapped layers whose KV has >= 256 tokens go
-through the flash-attention kernel (`kernels/flash_attention.py`); tapped
-layers, the 77-token cross-attention and the 64-token mid block stay plain
-math (matmul + f32 softmax). SAM's encoder attention (nn/sam.py) dispatches
-the same way through its own kernel (`kernels/sam_attention.py`): every grid
+Dispatch is the JAX side's. With `KernelOptions()` (all off, the default):
+untapped layers whose KV has >= 256 tokens go through the flash-attention
+kernel (`kernels/flash_attention.py`); tapped layers, the 77-token
+cross-attention and the 64-token mid block stay plain math (matmul + f32
+softmax). With `fused_heads` an untapped layer hands its projections unsplit
+to `flash_attention_hd`: every 77-token cross-attention and the self and
+fuser attention of the 1024-, 256- and 64-token levels run the fused-heads
+kernel, the 4096-token self and fuser attention fall to the per-head flash
+kernel; tapped layers stay plain math. With `packed_attention` the per-head
+flash forward is the head-packed kernel. With `fused_group_norm` the UNet's
+GroupNorms are `FusedGroupNorm` (`kernels/group_norm.py`), the SiLU that
+follows a resnet norm fused into it. SAM's encoder attention (nn/sam.py)
+dispatches through its own kernel (`kernels/sam_attention.py`): every grid
 of >= 196 tokens (the 14x14 windows, the 64x64 global layers) takes it; its
 mask decoder's attentions stay plain math.
 
@@ -30,7 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import KernelOptions
 from .kernels import flash_attention as fa
+from .kernels.flash_attention import merge_heads, split_heads
+from .kernels.group_norm import FusedGroupNorm
 
 AttnKey = tuple[str, int, int, int]
 
@@ -100,14 +111,20 @@ class GroupNorm(nn.GroupNorm):
                             self.bias.float(), self.eps)
 
 
-def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
-    b, l, d = x.shape
-    return x.reshape(b, l, heads, d // heads).transpose(1, 2)
+def group_norm(num_groups: int, channels: int, eps: float, options: KernelOptions,
+               silu: bool = False) -> nn.Module:
+    """The UNet's GroupNorm under `options`: `FusedGroupNorm` (with the SiLU
+    that follows it fused in when `silu`) or the plain `GroupNorm`."""
+    if options.fused_group_norm:
+        return FusedGroupNorm(num_groups, channels, eps=eps, apply_silu=silu)
+    return GroupNorm(num_groups, channels, eps=eps)
 
 
-def merge_heads(x: torch.Tensor) -> torch.Tensor:
-    b, h, l, d = x.shape
-    return x.transpose(1, 2).reshape(b, l, h * d)
+def norm_silu(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """SiLU(norm(x)); a `FusedGroupNorm` built with `apply_silu` has applied
+    it already."""
+    y = norm(x)
+    return y if getattr(norm, "apply_silu", False) else F.silu(y)
 
 
 def attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -117,24 +134,18 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.softmax(scores, dim=-1)
 
 
-def plain_attention(q, k, v):
-    """Materialized-probability attention (the JAX side's `_xla_attention`):
-    f32 scores and softmax, probabilities rounded to v's dtype for the AV
-    product, f32 accumulation."""
-    probs = attention_probs(q, k).to(v.dtype)
-    return torch.matmul(probs.float(), v.float()).to(q.dtype)
-
-
 class CrossAttention(nn.Module):
     """Multi-head attention (self when context is None); diffusers key names
     (to_q, to_k, to_v, to_out.0)."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
-                 context_dim: int | None = None, tap_name: str | None = None):
+                 context_dim: int | None = None, tap_name: str | None = None,
+                 options: KernelOptions = KernelOptions()):
         super().__init__()
         inner = heads * head_dim
         self.heads = heads
         self.tap_name = tap_name
+        self.options = options
         self.to_q = Linear(query_dim, inner, bias=False)
         self.to_k = Linear(context_dim or query_dim, inner, bias=False)
         self.to_v = Linear(context_dim or query_dim, inner, bias=False)
@@ -143,11 +154,15 @@ class CrossAttention(nn.Module):
     def forward(self, x, context=None, taps: TapSpec = NO_TAPS,
                 tap_token_index=None, taps_out: dict | None = None):
         ctx = x if context is None else context
-        q = split_heads(self.to_q(x), self.heads)
-        k = split_heads(self.to_k(ctx), self.heads)
-        v = split_heads(self.to_v(ctx), self.heads)
+        qf, kf, vf = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
 
         tapped = self.tap_name is not None and self.tap_name in taps.names
+        if self.options.fused_heads and not tapped:
+            # Projection layout: no head-split copies around the kernel.
+            return self.to_out[0](fa.flash_attention_hd(qf, kf, vf, self.heads,
+                                                        self.options))
+
+        q, k, v = (split_heads(t, self.heads) for t in (qf, kf, vf))
         if tapped:
             probs = attention_probs(q, k)
             export = probs
@@ -164,9 +179,9 @@ class CrossAttention(nn.Module):
                 taps_out[name_to_key(self.tap_name)] = export
             out = torch.matmul(probs.to(v.dtype), v)
         elif fa.kernel_supported(q, k):
-            out = fa.flash_attention(q, k, v)
+            out = fa.flash_attention(q, k, v, packed=self.options.packed_attention)
         else:
-            out = plain_attention(q, k, v)
+            out = fa.attention_plain(q, k, v)
         return self.to_out[0](merge_heads(out))
 
 
@@ -198,10 +213,11 @@ class GatedSelfAttention(nn.Module):
     the latent token count and Lk = Lq + max_objs on the flash kernel."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int,
-                 head_dim: int, dtype=torch.float32):
+                 head_dim: int, dtype=torch.float32,
+                 options: KernelOptions = KernelOptions()):
         super().__init__()
         self.linear = Linear(context_dim, query_dim)
-        self.attn = CrossAttention(query_dim, heads, head_dim)
+        self.attn = CrossAttention(query_dim, heads, head_dim, options=options)
         self.ff = FeedForward(query_dim)
         self.norm1 = LayerNorm(query_dim, 1e-6, dtype)
         self.norm2 = LayerNorm(query_dim, 1e-6, dtype)
@@ -222,15 +238,16 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
                  tap_name: str | None = None, use_gated_attention: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, options: KernelOptions = KernelOptions()):
         super().__init__()
         self.norm1 = LayerNorm(dim, 1e-6, dtype)
-        self.attn1 = CrossAttention(dim, heads, head_dim)
-        self.fuser = (GatedSelfAttention(dim, context_dim, heads, head_dim, dtype)
+        self.attn1 = CrossAttention(dim, heads, head_dim, options=options)
+        self.fuser = (GatedSelfAttention(dim, context_dim, heads, head_dim, dtype,
+                                         options=options)
                       if use_gated_attention else None)
         self.norm2 = LayerNorm(dim, 1e-6, dtype)
         self.attn2 = CrossAttention(dim, heads, head_dim, context_dim=context_dim,
-                                    tap_name=tap_name)
+                                    tap_name=tap_name, options=options)
         self.norm3 = LayerNorm(dim, 1e-6, dtype)
         self.ff = FeedForward(dim)
 
@@ -252,15 +269,17 @@ class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, context_dim: int,
                  depth: int = 1, norm_num_groups: int = 32,
                  tap_prefix: str | None = None,
-                 use_gated_attention: bool = False, dtype=torch.float32):
+                 use_gated_attention: bool = False, dtype=torch.float32,
+                 options: KernelOptions = KernelOptions()):
         super().__init__()
-        self.norm = GroupNorm(norm_num_groups, channels, eps=1e-6)
+        self.norm = group_norm(norm_num_groups, channels, 1e-6, options)
         self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(
                 channels, heads, channels // heads, context_dim,
                 tap_name=f"{tap_prefix}_{k}" if tap_prefix else None,
-                use_gated_attention=use_gated_attention, dtype=dtype)
+                use_gated_attention=use_gated_attention, dtype=dtype,
+                options=options)
             for k in range(depth)])
         self.proj_out = Conv2d(channels, channels, 1)
 

@@ -11,7 +11,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import NO_TAPS, Conv2d, GroupNorm, Linear, TapSpec, Transformer2D
+from ..config import KernelOptions
+from .attention import (
+    NO_TAPS,
+    Conv2d,
+    Linear,
+    TapSpec,
+    Transformer2D,
+    group_norm,
+    norm_silu,
+)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -38,21 +47,22 @@ class TimestepEmbedding(nn.Module):
 
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int | None,
-                 norm_num_groups: int = 32, eps: float = 1e-5):
+                 norm_num_groups: int = 32, eps: float = 1e-5,
+                 options: KernelOptions = KernelOptions()):
         super().__init__()
-        self.norm1 = GroupNorm(norm_num_groups, in_channels, eps=eps)
+        self.norm1 = group_norm(norm_num_groups, in_channels, eps, options, silu=True)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = Linear(temb_dim, out_channels) if temb_dim else None
-        self.norm2 = GroupNorm(norm_num_groups, out_channels, eps=eps)
+        self.norm2 = group_norm(norm_num_groups, out_channels, eps, options, silu=True)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x, t_emb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(norm_silu(self.norm1, x))
         if self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(t_emb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(norm_silu(self.norm2, h))
         residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return residual + h
 
@@ -78,15 +88,18 @@ class Upsample(nn.Module):
 class CrossAttnDownBlock(nn.Module):
     def __init__(self, in_channels, out_channels, temb_dim, num_layers, heads,
                  context_dim, depth=1, norm_num_groups=32, add_downsample=True,
-                 use_gated_attention=False, tap_place="down_0", dtype=torch.float32):
+                 use_gated_attention=False, tap_place="down_0", dtype=torch.float32,
+                 options=KernelOptions()):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock(in_channels if i == 0 else out_channels, out_channels,
-                        temb_dim, norm_num_groups) for i in range(num_layers)])
+                        temb_dim, norm_num_groups, options=options)
+            for i in range(num_layers)])
         self.attentions = nn.ModuleList([
             Transformer2D(out_channels, heads, context_dim, depth, norm_num_groups,
                           tap_prefix=f"{tap_place}_{i}",
-                          use_gated_attention=use_gated_attention, dtype=dtype)
+                          use_gated_attention=use_gated_attention, dtype=dtype,
+                          options=options)
             for i in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample(out_channels)])
                              if add_downsample else None)
@@ -107,11 +120,12 @@ class CrossAttnDownBlock(nn.Module):
 
 class DownBlock(nn.Module):
     def __init__(self, in_channels, out_channels, temb_dim, num_layers,
-                 norm_num_groups=32, add_downsample=True):
+                 norm_num_groups=32, add_downsample=True, options=KernelOptions()):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock(in_channels if i == 0 else out_channels, out_channels,
-                        temb_dim, norm_num_groups) for i in range(num_layers)])
+                        temb_dim, norm_num_groups, options=options)
+            for i in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample(out_channels)])
                              if add_downsample else None)
 
@@ -128,15 +142,17 @@ class DownBlock(nn.Module):
 
 class MidBlock(nn.Module):
     def __init__(self, channels, temb_dim, heads, context_dim, depth=1,
-                 norm_num_groups=32, use_gated_attention=False, dtype=torch.float32):
+                 norm_num_groups=32, use_gated_attention=False, dtype=torch.float32,
+                 options=KernelOptions()):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock(channels, channels, temb_dim, norm_num_groups)
+            ResnetBlock(channels, channels, temb_dim, norm_num_groups, options=options)
             for _ in range(2)])
         self.attentions = nn.ModuleList([
             Transformer2D(channels, heads, context_dim, depth, norm_num_groups,
                           tap_prefix="mid_0_0",
-                          use_gated_attention=use_gated_attention, dtype=dtype)])
+                          use_gated_attention=use_gated_attention, dtype=dtype,
+                          options=options)])
 
     def forward(self, x, t_emb, context, objs=None, taps: TapSpec = NO_TAPS,
                 tap_token_index=None, taps_out=None):
@@ -150,16 +166,17 @@ class CrossAttnUpBlock(nn.Module):
     def __init__(self, out_channels, prev_channels, temb_dim,
                  num_layers, heads, context_dim, depth=1, norm_num_groups=32,
                  add_upsample=True, use_gated_attention=False, tap_place="up_0",
-                 dtype=torch.float32, skip_channels=None):
+                 dtype=torch.float32, skip_channels=None, options=KernelOptions()):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock((prev_channels if i == 0 else out_channels) + skip_channels[i],
-                        out_channels, temb_dim, norm_num_groups)
+                        out_channels, temb_dim, norm_num_groups, options=options)
             for i in range(num_layers)])
         self.attentions = nn.ModuleList([
             Transformer2D(out_channels, heads, context_dim, depth, norm_num_groups,
                           tap_prefix=f"{tap_place}_{i}",
-                          use_gated_attention=use_gated_attention, dtype=dtype)
+                          use_gated_attention=use_gated_attention, dtype=dtype,
+                          options=options)
             for i in range(num_layers)])
         self.upsamplers = (nn.ModuleList([Upsample(out_channels)])
                            if add_upsample else None)
@@ -179,11 +196,11 @@ class CrossAttnUpBlock(nn.Module):
 class UpBlock(nn.Module):
     def __init__(self, out_channels, prev_channels, temb_dim,
                  num_layers, norm_num_groups=32, add_upsample=True,
-                 skip_channels=None):
+                 skip_channels=None, options=KernelOptions()):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock((prev_channels if i == 0 else out_channels) + skip_channels[i],
-                        out_channels, temb_dim, norm_num_groups)
+                        out_channels, temb_dim, norm_num_groups, options=options)
             for i in range(num_layers)])
         self.upsamplers = (nn.ModuleList([Upsample(out_channels)])
                            if add_upsample else None)

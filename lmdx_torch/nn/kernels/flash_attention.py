@@ -1,18 +1,38 @@
 """Flash attention for the UNet's untapped layers (port of the JAX package's
 nn/pallas/flash_attention.py: `_pallas_attention`, `_pallas_attention_bwd`,
-`_flash_attention_ad`, `flash_attention`, `_kernel_supported`).
+`_pallas_attention_packed`, `_pallas_attention_fusedheads`,
+`_flash_attention_ad`, `_fusedheads_ad`, `flash_attention`,
+`flash_attention_hd`, `_kernel_supported`, `_fusedheads_supported`).
 
-Two hand-written CUDA kernels for Hopper (`lmdx_torch/csrc/flash_fwd.cu`,
-`flash_bwd.cu`; their sources say what bounds them and how they are built)
-sit behind two wrappers, each with its plain PyTorch version beside it:
+Four hand-written CUDA kernels for Hopper (`lmdx_torch/csrc/flash_fwd.cu`,
+`flash_bwd.cu`, `flash_fwd_packed.cu`, `flash_fwd_fusedheads.cu`; their
+sources say what bounds them and how they are built) sit behind four
+wrappers, each with its plain PyTorch version beside it:
 
-- `flash_attention_fwd(q, k, v) -> (o, lse)`
+- `flash_attention_fwd(q, k, v) -> (o, lse)` on (B, heads, L, head_dim)
 - `flash_attention_bwd(q, k, v, lse, o, do) -> (dq, dk, dv)`
+- `flash_attention_fwd_packed(q, k, v) -> (o, lse)`: the same function, the
+  heads taken in groups of `head_pack(head_dim)`
+- `flash_attention_fwd_fusedheads(qf, kf, vf, heads) -> (o, lse)` on the
+  projection layout (B, L, heads * head_dim), lse (B, heads, Lq)
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
-launches its kernel or raises. `FlashAttention` wires both into autograd, as
-`jax.custom_vjp` does on the JAX side, and `flash_attention` is the dispatch
-the attention layers call.
+launches its kernel or raises. `FlashAttention` and `FusedHeadsAttention` wire
+them into autograd, as `jax.custom_vjp` does on the JAX side; both take their
+gradient from `flash_attention_bwd` (the fused-heads one after a head split).
+
+Dispatch (the attention layers call it for their untapped attentions):
+
+- `KernelOptions()` (all off): `kernel_supported` (KV >= 256 tokens) sends a
+  layer to `flash_attention` on split heads and `flash_attention_fwd`;
+  shorter KV stays plain math.
+- `packed_attention`: `flash_attention` takes `flash_attention_fwd_packed`
+  in place of `flash_attention_fwd`.
+- `fused_heads`: `flash_attention_hd` takes the projections unsplit. Where
+  `fusedheads_supported` holds (every 77-token cross-attention and the self
+  and fuser attention of the 1024-, 256- and 64-token levels, by the
+  reference's size rule) it runs `FusedHeadsAttention`; otherwise it splits
+  heads and dispatches as above.
 """
 
 from __future__ import annotations
@@ -21,11 +41,13 @@ import ctypes
 
 import torch
 
+from ...config import KernelOptions
 from . import build as buildlib
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one exactly where it launches its kernel.
-LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "flash_attention_fwd_packed": 0, "flash_attention_fwd_fusedheads": 0}
 
 
 def reset_launch_counts() -> None:
@@ -47,6 +69,85 @@ def attention_fwd_plain(q, k, v):
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.matmul(p, v.float()).to(q.dtype), lse
+
+
+def attention_plain(q, k, v):
+    """Materialized-probability attention (the JAX side's `_xla_attention`):
+    f32 scores and softmax, probabilities rounded to v's dtype for the AV
+    product, f32 accumulation."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def head_pack(d: int) -> int:
+    """Heads per group of the packed forward: as many as fit 128 lanes, at
+    most 3 (the reference's `_head_pack`)."""
+    return max(1, min(3, 128 // d))
+
+
+_PACKED_KV_CHUNK = 512
+
+
+def attention_fwd_packed_plain(q, k, v):
+    """(o, lse) as `attention_fwd_plain`, by the packed kernel's arithmetic:
+    heads in groups of `head_pack(d)` (the last group short, its padding
+    heads never computed), an online softmax over 512-row KV chunks with the
+    row max started at -1e30 and the denominator clamped at 1e-30, the
+    probabilities rounded to v's dtype for the AV product."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    pack = head_pack(d)
+    scale = d ** -0.5
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    for h0 in range(0, h, pack):
+        heads = slice(h0, min(h0 + pack, h))
+        qg, kg, vg = q[:, heads].float(), k[:, heads].float(), v[:, heads].float()
+        m = torch.full(qg.shape[:3], -1e30, device=q.device, dtype=torch.float32)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qg)
+        for c0 in range(0, lk, _PACKED_KV_CHUNK):
+            kc, vc = kg[:, :, c0:c0 + _PACKED_KV_CHUNK], vg[:, :, c0:c0 + _PACKED_KV_CHUNK]
+            s = torch.matmul(qg, kc.transpose(-1, -2)) * scale
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(), vc)
+            m = m_new
+        l = l.clamp_min(1e-30)
+        o[:, heads] = (acc / l[..., None]).to(q.dtype)
+        lse[:, heads] = m + torch.log(l)
+    return o, lse
+
+
+def split_heads(x, heads: int):
+    """(B, L, heads * d) -> the (B, heads, L, d) view, no copy."""
+    b, l, hd = x.shape
+    return x.reshape(b, l, heads, hd // heads).transpose(1, 2)
+
+
+def merge_heads(x):
+    """(B, heads, L, d) -> (B, L, heads * d)."""
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+def attention_fwd_fusedheads_plain(qf, kf, vf, heads: int):
+    """(o, lse) on the projection layout: qf (B, Lq, heads * d), kf/vf
+    (B, Lk, heads * d) -> o (B, Lq, heads * d) in qf's dtype and lse
+    (B, heads, Lq) f32. Per head: f32 scores, row max, exp, the sum and the
+    AV product in f32, divided by the sum (the fused-heads kernel's
+    arithmetic)."""
+    q, k, v = (split_heads(t, heads).float() for t in (qf, kf, vf))
+    s = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(-1, keepdim=True)
+    o = torch.matmul(p, v) / denom
+    return merge_heads(o).to(qf.dtype), (m + torch.log(denom))[..., 0]
 
 
 def attention_bwd_plain(q, k, v, lse, o, do):
@@ -78,6 +179,22 @@ def _fwd_lib():
     fn = lib.lmdx_flash_fwd
     if fn.argtypes is None:
         fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_PTR]
+        fn.restype = _INT
+    return fn
+
+
+def _packed_lib():
+    fn = buildlib.library("flash_fwd_packed").lmdx_flash_fwd_packed
+    if fn.argtypes is None:
+        fn.argtypes = [_PTR] * 5 + [_INT] * 6 + [_PTR]
+        fn.restype = _INT
+    return fn
+
+
+def _fusedheads_lib():
+    fn = buildlib.library("flash_fwd_fusedheads").lmdx_flash_fwd_fusedheads
+    if fn.argtypes is None:
+        fn.argtypes = [_PTR] * 5 + [_INT] * 5 + [_PTR]
         fn.restype = _INT
     return fn
 
@@ -135,6 +252,48 @@ def flash_attention_fwd(q, k, v):
     return o, lse
 
 
+def flash_attention_fwd_packed(q, k, v):
+    """(o, lse) of attention with the heads taken in groups of
+    `head_pack(head_dim)`; the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_fwd_packed_plain(q, k, v)
+    b, h, lq, lk, d = _check_qkv(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    rc = _packed_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       lse.data_ptr(), b, h, head_pack(d), lq, lk, d, _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_packed launch failed: CUDA error {rc}")
+    LAUNCHES["flash_attention_fwd_packed"] += 1
+    return o, lse
+
+
+def flash_attention_fwd_fusedheads(qf, kf, vf, heads: int):
+    """(o, lse) of attention on the projection layout (B, L, heads * d); the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if qf.device.type == "cpu":
+        return attention_fwd_fusedheads_plain(qf, kf, vf, heads)
+    if qf.dim() != 3 or kf.dim() != 3 or vf.dim() != 3:
+        raise ValueError("qf, kf, vf must be (B, L, heads * head_dim)")
+    b, lq, hd = qf.shape
+    lk = kf.shape[1]
+    if kf.shape != (b, lk, hd) or vf.shape != kf.shape:
+        raise ValueError(f"shape mismatch qf {tuple(qf.shape)} kf {tuple(kf.shape)} "
+                         f"vf {tuple(vf.shape)}")
+    if hd % heads or hd // heads > 256 or b > 65535 or heads > 65535:
+        raise ValueError(f"width {hd} / heads {heads} / batch {b} outside the kernel")
+    _check_cuda({"qf": qf, "kf": kf, "vf": vf}, qf, torch.bfloat16)
+    o = torch.empty_like(qf)
+    lse = torch.empty((b, heads, lq), device=qf.device, dtype=torch.float32)
+    rc = _fusedheads_lib()(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
+                           lse.data_ptr(), b, heads, lq, lk, hd // heads, _stream(qf))
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_fusedheads launch failed: CUDA error {rc}")
+    LAUNCHES["flash_attention_fwd_fusedheads"] += 1
+    return o, lse
+
+
 def flash_attention_bwd(q, k, v, lse, o, do):
     """(dq, dk, dv) of attention from the forward's lse and o; the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors."""
@@ -161,18 +320,42 @@ def flash_attention_bwd(q, k, v, lse, o, do):
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose gradient is the flash backward (the port of
-    `_flash_attention_ad`'s custom VJP)."""
+    `_flash_attention_ad`'s custom VJP). `packed` takes the head-packed
+    forward; the backward is the same."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = flash_attention_fwd(q, k, v)
+    def forward(ctx, q, k, v, packed=False):
+        fwd = flash_attention_fwd_packed if packed else flash_attention_fwd
+        o, lse = fwd(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, lse, o, do.contiguous())
+        return (*flash_attention_bwd(q, k, v, lse, o, do.contiguous()), None)
+
+
+class FusedHeadsAttention(torch.autograd.Function):
+    """Attention on the projection layout (the port of `_fusedheads_ad`). The
+    backward runs only inside guidance iterations; it splits heads (one
+    contiguous copy of each saved tensor) and reuses the per-head flash
+    backward, as `_fusedheads_bwd` does."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, heads):
+        o, lse = flash_attention_fwd_fusedheads(qf, kf, vf, heads)
+        ctx.save_for_backward(qf, kf, vf, o, lse)
+        ctx.heads = heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qf, kf, vf, o, lse = ctx.saved_tensors
+        q, k, v, o4, g = (split_heads(t, ctx.heads).contiguous()
+                          for t in (qf, kf, vf, o, do))
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, o4, g)
+        return merge_heads(dq), merge_heads(dk), merge_heads(dv), None
 
 
 def kernel_supported(q, k) -> bool:
@@ -183,7 +366,44 @@ def kernel_supported(q, k) -> bool:
     return d <= 256 and lq >= 8 and k.shape[2] >= 256
 
 
-def flash_attention(q, k, v):
+_FUSEDHEADS_BUDGET = 11 * 1024 * 1024
+
+
+def fusedheads_supported(qf, kf, heads: int) -> bool:
+    """The JAX gate `_fusedheads_supported` without its environment switch:
+    head_dim a multiple of 8 and <= 256, Lq >= 8, and the reference's size
+    rule on KV rounded up to 128 rows. The size rule is the reference's
+    dispatch (what its kernel could hold on chip), kept so that the two
+    packages send the same layers to the same kernels; it is no limit of the
+    CUDA kernel, which tiles KV. At bf16 it passes every 77-token
+    cross-attention and the self and fuser attention of the 1024-, 256- and
+    64-token levels, and refuses the 4096-token ones."""
+    _, lq, hd = qf.shape
+    lk = kf.shape[1]
+    d = hd // heads
+    if hd % heads or d % 8 or d > 256 or lq < 8:
+        return False
+    lk_pad = -(-lk // 128) * 128
+    itemsize = qf.element_size()
+    return (2 * 128 * lk_pad * 4 + 4 * lk_pad * hd * itemsize
+            + 4 * 128 * hd * itemsize) < _FUSEDHEADS_BUDGET
+
+
+def flash_attention(q, k, v, packed: bool = False):
     """Fused attention over (B, heads, L, head_dim) tensors, differentiable;
     callers check `kernel_supported` first."""
-    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous())
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), packed)
+
+
+def flash_attention_hd(qf, kf, vf, heads: int, options: KernelOptions = KernelOptions()):
+    """Fused attention on projection-layout (B, L, heads * head_dim) tensors,
+    differentiable: the fused-heads kernel where `fusedheads_supported`
+    holds, else split heads -> per-head flash kernel (`kernel_supported`) or
+    plain math -> merge."""
+    if fusedheads_supported(qf, kf, heads):
+        return FusedHeadsAttention.apply(qf.contiguous(), kf.contiguous(),
+                                         vf.contiguous(), heads)
+    q, k, v = (split_heads(t, heads) for t in (qf, kf, vf))
+    if kernel_supported(q, k):
+        return merge_heads(flash_attention(q, k, v, packed=options.packed_attention))
+    return merge_heads(attention_plain(q, k, v))

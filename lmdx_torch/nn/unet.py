@@ -17,8 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..config import UNetConfig
-from .attention import NO_TAPS, Conv2d, GroupNorm, Linear, TapSpec
+from ..config import KernelOptions, UNetConfig
+from .attention import NO_TAPS, Conv2d, Linear, TapSpec, group_norm, norm_silu
 from .blocks import (
     CrossAttnDownBlock,
     CrossAttnUpBlock,
@@ -71,7 +71,8 @@ class PositionNet(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig, dtype=torch.float32):
+    def __init__(self, cfg: UNetConfig, dtype=torch.float32,
+                 kernels: KernelOptions = KernelOptions()):
         super().__init__()
         self.config = cfg
         ch = cfg.block_out_channels
@@ -90,10 +91,11 @@ class UNet2DCondition(nn.Module):
                     prev, ch[i], temb, cfg.layers_per_block, cfg.num_attention_heads[i],
                     cfg.cross_attention_dim, depth, cfg.norm_num_groups,
                     add_downsample=not last, use_gated_attention=cfg.use_gligen,
-                    tap_place=f"down_{i}", dtype=dtype)
+                    tap_place=f"down_{i}", dtype=dtype, options=kernels)
             elif block_type == "DownBlock2D":
                 block = DownBlock(prev, ch[i], temb, cfg.layers_per_block,
-                                  cfg.norm_num_groups, add_downsample=not last)
+                                  cfg.norm_num_groups, add_downsample=not last,
+                                  options=kernels)
             else:
                 raise ValueError(block_type)
             self.down_blocks.append(block)
@@ -102,7 +104,8 @@ class UNet2DCondition(nn.Module):
 
         self.mid_block = MidBlock(ch[-1], temb, cfg.num_attention_heads[-1],
                                   cfg.cross_attention_dim, depth, cfg.norm_num_groups,
-                                  use_gated_attention=cfg.use_gligen, dtype=dtype)
+                                  use_gated_attention=cfg.use_gligen, dtype=dtype,
+                                  options=kernels)
 
         self.up_blocks = nn.ModuleList()
         rev = list(reversed(ch))
@@ -116,16 +119,19 @@ class UNet2DCondition(nn.Module):
                     rev[i], prev, temb, n_up, cfg.num_attention_heads[level],
                     cfg.cross_attention_dim, depth, cfg.norm_num_groups,
                     add_upsample=not last, use_gated_attention=cfg.use_gligen,
-                    tap_place=f"up_{i}", dtype=dtype, skip_channels=block_skips)
+                    tap_place=f"up_{i}", dtype=dtype, skip_channels=block_skips,
+                    options=kernels)
             elif block_type == "UpBlock2D":
                 block = UpBlock(rev[i], prev, temb, n_up, cfg.norm_num_groups,
-                                add_upsample=not last, skip_channels=block_skips)
+                                add_upsample=not last, skip_channels=block_skips,
+                                options=kernels)
             else:
                 raise ValueError(block_type)
             self.up_blocks.append(block)
             prev = rev[i]
 
-        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch[0], eps=1e-5)
+        self.conv_norm_out = group_norm(cfg.norm_num_groups, ch[0], 1e-5, kernels,
+                                        silu=True)
         self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
     def forward(self, sample, timesteps, encoder_hidden_states, objs=None,
@@ -171,7 +177,7 @@ class UNet2DCondition(nn.Module):
             if stop_point == ("up", i):
                 return None
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(norm_silu(self.conv_norm_out, x))
         return x.float().permute(0, 2, 3, 1)
 
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import SD_CONFIGS, SDConfig
+from ..config import SD_CONFIGS, KernelOptions, SDConfig
 from ..nn.clip import CLIPTextEncoder
 from ..nn.sam import Sam, SamConfig, sam_vit_base
 from ..nn.unet import PositionNet, UNet2DCondition
@@ -83,13 +83,16 @@ def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> None:
 
 
 def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 0,
-                 device=None) -> ModelBundle:
+                 device=None, kernels: KernelOptions | None = None) -> ModelBundle:
     """Bundle from converted state dicts ({"unet", "text", "vae",
-    "position_net"}) or, when None, from seeded random weights."""
+    "position_net"}) or, when None, from seeded random weights. `kernels`
+    chooses the UNet's opt-in kernels (None: all off, the default path); the
+    weights and their names are the same under every choice."""
     device = resolve_device(device)
     dtype = config.torch_dtype()
     with torch.device(device):
-        unet = UNet2DCondition(config.unet, dtype=dtype)
+        unet = UNet2DCondition(config.unet, dtype=dtype,
+                               kernels=kernels or KernelOptions())
         text = CLIPTextEncoder(config.clip, dtype=dtype)
         vae = VAEDecoder(config.vae)
         pn = (PositionNet(config.clip.hidden_size, config.unet.cross_attention_dim,
@@ -112,9 +115,11 @@ def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 
 
 
 def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
-                seed: int = 0, device=None) -> ModelBundle:
+                seed: int = 0, device=None,
+                kernels: KernelOptions | None = None) -> ModelBundle:
     """Weightless bundle for `model_key` (random weights from `seed`)."""
-    return build_bundle(SD_CONFIGS[model_key](), None, seed=seed, device=device)
+    return build_bundle(SD_CONFIGS[model_key](), None, seed=seed, device=device,
+                        kernels=kernels)
 
 
 # SAM parameters kept in f32 whatever the compute dtype, as the JAX segmenter

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (flash attention forward and backward, SAM
-attention) against their plain PyTorch versions, on the card. Marked
+"""The port's CUDA kernels (flash attention forward and backward, the
+head-packed and fused-heads forwards, SAM attention, GroupNorm's pair-stats
+reduction) against their plain PyTorch versions, on the card. Marked
 `gpu`: they skip where no CUDA device is present. On a machine with the
 card (and without JAX, which the repo's root conftest imports), run them
 with
@@ -9,7 +10,8 @@ with
 Tolerance: the kernels round p and dS to bf16 for the tensor-core products
 and write bf16 outputs, the plain versions compute in f32 from the same bf16
 inputs. Each output is held to max|kernel - plain| <= 2e-2 * max|plain|
-(a few bf16 ulps of the largest entry); the f32 LSE to 1e-3 absolute.
+(a few bf16 ulps of the largest entry); the f32 LSE to 1e-3 absolute; the
+f32 sums of pair_stats to 1e-3 * max|plain| (f32 sums in another order).
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from lmdx_torch.nn.kernels import flash_attention as fa
+from lmdx_torch.nn.kernels import group_norm as gn
 from lmdx_torch.nn.kernels import sam_attention as sa
 
 pytestmark = pytest.mark.gpu
@@ -128,3 +131,148 @@ def test_sam_wrapper_counts_and_rejects(cuda):
     with pytest.raises(ValueError):
         sa.sam_attention(q, k, v, bw_, bh_[..., :13])   # grid does not match N
     assert sa.LAUNCHES["sam_attention"] == 1
+
+
+PACKED_SHAPES = [
+    # (batch, heads, Lq, Lk, d)
+    (2, 8, 4096, 4126, 40),   # main path: pack 3, one padding head, fuser KV
+    (4, 8, 256, 256, 40),     # pack 3, aligned
+    (2, 5, 100, 300, 64),     # pack 2, one padding head, ragged q and kv tails
+    (2, 8, 256, 286, 160),    # pack 1
+]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", PACKED_SHAPES)
+def test_packed_forward_matches_plain(cuda, b, h, lq, lk, d):
+    q, k, v, _ = (t.reshape(b, h, -1, d) for t in _inputs(b * h, lq, lk, d, cuda, seed=2))
+    o, lse = fa.flash_attention_fwd_packed(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_packed_plain(q, k, v)
+    o_one, lse_one = fa.attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(o, o_ref)
+    _close(o, o_one)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert (lse - lse_one).abs().max().item() <= 1e-3
+
+
+FUSED_SHAPES = [
+    # (batch, heads, Lq, Lk, d): cross (KV 77), self, fuser KV, the mid block
+    (2, 8, 4096, 77, 40),
+    (2, 8, 1024, 1054, 80),
+    (4, 8, 256, 256, 160),
+    (2, 8, 64, 94, 160),
+    (2, 3, 100, 130, 24),     # ragged tails, head_dim not a multiple of 16
+]
+
+
+def _fused_inputs(b, h, lq, lk, d, device, seed=3):
+    rng = np.random.default_rng(seed)
+
+    def mk(L):
+        return torch.from_numpy(rng.standard_normal((b, L, h * d), dtype=np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+
+    return mk(lq), mk(lk), mk(lk), mk(lq)
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", FUSED_SHAPES)
+def test_fusedheads_forward_matches_plain(cuda, b, h, lq, lk, d):
+    qf, kf, vf, _ = _fused_inputs(b, h, lq, lk, d, cuda)
+    o, lse = fa.flash_attention_fwd_fusedheads(qf, kf, vf, h)
+    o_ref, lse_ref = fa.attention_fwd_fusedheads_plain(qf, kf, vf, h)
+    torch.cuda.synchronize()
+    assert o.shape == qf.shape and lse.shape == (b, h, lq)
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", FUSED_SHAPES[:4])
+def test_fusedheads_autograd_matches_plain_backward(cuda, b, h, lq, lk, d):
+    """`FusedHeadsAttention`'s backward (head split + flash backward, here at
+    KV 77 and 94 too) against the plain backward on split heads."""
+    qf, kf, vf, g = _fused_inputs(b, h, lq, lk, d, cuda, seed=4)
+    ins = [t.clone().requires_grad_(True) for t in (qf, kf, vf)]
+    fa.reset_launch_counts()
+    out = fa.FusedHeadsAttention.apply(*ins, h)
+    out.backward(g)
+    assert fa.LAUNCHES["flash_attention_fwd_fusedheads"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == 1
+    q, k, v, o4, g4 = (fa.split_heads(t, h).contiguous() for t in (qf, kf, vf, out.detach(), g))
+    _, lse = fa.attention_fwd_plain(q, k, v)
+    want = fa.attention_bwd_plain(q, k, v, lse, o4, g4)
+    torch.cuda.synchronize()
+    for t, w in zip(ins, want):
+        _close(t.grad, fa.merge_heads(w))
+
+
+STAT_SHAPES = [
+    # (B, C, N, dtype): GroupNorm inputs of the main path, then ragged rows
+    (8, 320, 4096, torch.bfloat16), (2, 2560, 64, torch.bfloat16),
+    (4, 1920, 256, torch.float32), (2, 960, 1024, torch.float32),
+    (3, 7, 1030, torch.bfloat16), (3, 7, 61, torch.float32),
+]
+
+
+@pytest.mark.parametrize("b,c,n,dtype", STAT_SHAPES)
+@pytest.mark.parametrize("same", [True, False], ids=["x_x", "a_b"])
+def test_pair_stats_matches_plain(cuda, b, c, n, dtype, same):
+    rng = np.random.default_rng(5)
+
+    def mk():
+        return torch.from_numpy(rng.standard_normal((b, c, n), dtype=np.float32) + 0.5).to(
+            device=cuda, dtype=dtype)
+
+    a = mk()
+    other = a if same else mk()
+    got = gn.pair_stats(a, other)
+    want = gn.pair_stats_plain(a, other)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert g_.shape == (b, c) and g_.dtype == torch.float32
+        _close(g_, w_, rel=1e-3)
+
+
+def test_group_norm_fn_matches_autograd_through_group_norm(cuda):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 320, 16, 16), dtype=np.float32) * 2 + 0.5).to(
+        device=cuda, dtype=torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal(320, dtype=np.float32) * 0.1 + 1).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(320, dtype=np.float32) * 0.1).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((2, 320, 16, 16), dtype=np.float32)).to(cuda)
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    gn.reset_launch_counts()
+    got = gn.GroupNormFn.apply(xs[0], w, bias, 32, 1e-5, True)
+    got.backward(g)
+    assert gn.LAUNCHES["pair_stats"] == 2
+    want = torch.nn.functional.silu(
+        torch.nn.functional.group_norm(xs[1].float(), 32, w, bias, 1e-5))
+    want.backward(g)
+    torch.cuda.synchronize()
+    _close(got, want, rel=1e-4)
+    _close(xs[0].grad, xs[1].grad)   # bf16 gradients: one rounding apart
+
+
+def test_new_wrappers_count_and_reject(cuda):
+    q, k, v, _ = _inputs(16, 64, 256, 40, cuda)
+    q, k, v = (t.reshape(2, 8, -1, 40) for t in (q, k, v))
+    fa.reset_launch_counts()
+    gn.reset_launch_counts()
+    fa.flash_attention_fwd_packed(q, k, v)
+    assert fa.LAUNCHES["flash_attention_fwd_packed"] == 1
+    assert fa.LAUNCHES["flash_attention_fwd"] == 0
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd_packed(q.float(), k.float(), v.float())
+    qf, kf, vf, _ = _fused_inputs(2, 8, 64, 77, 40, cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd_fusedheads(qf, kf, vf, 7)           # 320 % 7
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd_fusedheads(qf[:, :, :160], kf[:, :, :160], vf[:, :, :160], 4)
+    assert fa.LAUNCHES["flash_attention_fwd_fusedheads"] == 0
+    a = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError):
+        gn.pair_stats(a, a.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        gn.pair_stats(a.half(), a.half())
+    with pytest.raises(ValueError):
+        gn.pair_stats(a.transpose(1, 2), a.transpose(1, 2))
+    assert gn.LAUNCHES["pair_stats"] == 0

@@ -6,7 +6,10 @@
 Five phases; any failure exits nonzero before the final line is printed.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
-   six), one nvcc per source, all started together, into build/kernels/.
+   six), one nvcc per source, all started together, into build/kernels/, and
+   prints each kernel's registers and spilled bytes (`ptxas -v`). Fails if
+   an instantiation of the attention forward body for a head dim the paths
+   use (48, 64, 80, 160) spills.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes. Flash attention: 8 heads; (L, head_dim) =
    (4096, 40), (1024, 80), (256, 160); at every batch and KV the two driven
@@ -77,6 +80,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -141,6 +145,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Head dims the attention forward body is instantiated for and the three
+# paths use (40 -> 48, 64, 80, 160): none of their kernels may spill.
+PATH_HEAD_DIMS = ("48", "64", "80", "160")
+FORWARD_SOURCES = ("flash_fwd", "sam_attention", "flash_fwd_packed", "flash_fwd_fusedheads")
+
+
 def phase_build():
     from lmdx_torch.nn.kernels import build as buildlib
 
@@ -148,10 +158,16 @@ def phase_build():
     paths = buildlib.build()
     log(f"build: {len(paths)} sources in {time.perf_counter() - t0:.2f} s -> "
         f"{sorted(str(p.relative_to(HERE)) for p in paths.values())}")
+    spilled = []
     for name, text in buildlib.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for k in buildlib.ptxas_report(text):
+            log(f"  ptxas {name}: {k['kernel']}: {k['registers']} registers, "
+                f"{k['spill_bytes']} bytes spilled")
+            head_dim = k["kernel"].partition("<")[2].split(",")[0]
+            if k["spill_bytes"] and name in FORWARD_SOURCES and head_dim in PATH_HEAD_DIMS:
+                spilled.append(k["kernel"])
+    if spilled:
+        fail(f"build: kernels of the paths' head dims spill registers: {spilled}")
 
 
 def _inputs(b, h, lq, lk, d, seed):
@@ -561,8 +577,16 @@ def _profile_summary(prof, wall: float, path: str) -> None:
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == cuda]
+    # The port's kernels by name, whatever their template arguments.
+    by_name: dict[str, list] = {}
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        own = re.search(r"lmdx::.*?(\w+_kernel)", e.key)
+        row = by_name.setdefault(own.group(1) if own else e.key, [0.0, 0])
+        row[0] += e.self_device_time_total / 1e3
+        row[1] += e.count
+    rows = [(k, ms, n) for k, (ms, n) in by_name.items()]
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         log("profile: the profiler reported no device time")

@@ -2,77 +2,223 @@
 // flash_fwd_fusedheads.cu and sam_attention.cu.
 //
 // O = softmax(Q K^T * scale + bias) V for one head, and optionally the row
-// log-sum-exp LSE (in units of the biased, scaled scores). The caller hands
-// the body this head's q (Lq, d), k/v (Lk, d) and o (Lq, d), bf16, with the
-// distance between rows of each (d for a (BH, L, d) tensor, heads * d for
-// the projection layout (B, L, heads * d)), and its lse row (Lq) f32 or null.
+// log-sum-exp LSE (natural log, in units of the biased, scaled scores). The
+// caller hands the body this head's q (Lq, d), k/v (Lk, d) and o (Lq, d),
+// bf16, with the distance between rows of each (d for a (BH, L, d) tensor,
+// heads * d for the projection layout (B, L, heads * d)), and its lse row
+// (Lq) f32 or null.
 //
-// Each block takes one 64-row q tile and walks the KV in 64-row tiles with
-// an online softmax: running row max m and denominator l in shared memory,
-// the f32 output accumulator rescaled by exp(m_old - m_new) before each P V
-// product. Scores, probabilities and the accumulator stay in shared memory.
-// Columns past Lk in the last tile are masked to -inf; rows past Lq are
-// zero-filled on the load and not stored; head dims are zero-padded to a
-// multiple of 16. The products are flash_common.cuh's WMMA tiles with f32
-// accumulation; P is rounded to bf16 for the P V product. The row max starts
-// at m_init and the denominator is clamped from below at l_min (-inf and 0
-// give the plain softmax; the head-packed kernel passes its reference's
-// -1e30 and 1e-30).
+// What bounds it on an H100, and what the design does about it. At the long
+// shapes (L >= 1024) the work is tensor-core operations; what decides the
+// pace is how many shared-memory bytes and synchronisations each product
+// costs. So:
+//
+// - Scores, probabilities and the output accumulator live in registers. A
+//   warp owns 16 q rows of the block's q tile (FwdTile: 4 or 8 warps) and
+//   issues mma.sync.m16n8k16 (bf16 in, f32 out) itself. Its q fragments are
+//   loaded once (ldmatrix) and kept; S (16 x 64 f32) is an accumulator
+//   fragment; the online softmax runs on the fragment, the row max reduced
+//   over the four lanes that share a row by two shuffles, the row sum kept
+//   per lane and reduced once at the end; P is
+//   rounded to bf16 and repacked in registers into the A fragment of P V; O
+//   is rescaled in registers. Only K/V tiles, SAM's bias rows, and Q until
+//   its fragments are loaded (its rows then stage the warp's O for 16-byte
+//   stores) are in shared memory.
+// - K and V arrive through cp.async in 16-byte pieces, fwd_stages(DP) - 1
+//   tiles of 64 keys ahead of the one being multiplied, with one __syncthreads() a
+//   tile. Rows are padded by 16 bytes, which makes every ldmatrix (plain for
+//   K, .trans for V) free of bank conflicts. Rows >= L and head-dim columns
+//   >= d are zero-filled (cp.async with a source size of 0); key columns
+//   >= Lk are masked to -inf in the fragment. A pointer or row stride that
+//   is not a multiple of 16 bytes, or a head dim that is not a multiple of
+//   8, takes element-wise loads and stores inside the same kernel.
+// - exp2 with scale * log2(e) folded into the score: one multiply a score,
+//   one ex2.approx; the LSE is converted back to natural units on the store.
+// - The head dim is a template parameter DP (d padded up to an instantiated
+//   width: 48, 64, 80, 160, and 256 for everything above), so every
+//   fragment index is static. At DP = 256 the q fragments are re-read from
+//   shared memory each tile to stay inside the register file.
+//
+// The row max starts at m_init and the denominator is clamped from below at
+// l_min (-inf and 0 give the plain softmax; the head-packed kernel passes its
+// reference's -1e30 and 1e-30).
 //
 // The bias is a policy type: NoBias (the flash kernels) adds nothing and
 // stages nothing; RelPosBias (sam_attention.cu) stages the q tile's rows of
-// SAM's decomposed rel-pos bias in shared memory and adds two f32 values by
-// index.
+// SAM's decomposed rel-pos bias in shared memory (cp.async, f32) and adds two
+// f32 values by index to each fragment element, each thread working out its
+// own (row, column).
 #pragma once
+
+#include <stdint.h>
 
 #include "flash_common.cuh"
 
 namespace lmdx {
 namespace {
 
-constexpr int kFwdBQ = 64;  // q rows per block
 constexpr int kFwdBK = 64;  // kv rows per inner tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr size_t kMaxBlockSmem = 232448;  // 227 KB a block
 
-struct FwdLayout {
-  int ldh, lds, ldp, ldo;
-  size_t q, k, v, s, p, o, m, l, a, bias, total;
-  // bias_cols: f32 bias values staged per q row (0 for no bias).
-  __host__ __device__ FwdLayout(int dp, int bias_cols) {
-    ldh = dp + 8;
-    lds = kFwdBK + 4;
-    ldp = kFwdBK + 8;
-    ldo = dp + 4;
-    Carve cv;
-    q = cv.take(sizeof(bf16) * kFwdBQ * ldh);
-    k = cv.take(sizeof(bf16) * kFwdBK * ldh);
-    v = cv.take(sizeof(bf16) * kFwdBK * ldh);
-    s = cv.take(sizeof(float) * kFwdBQ * lds);
-    p = cv.take(sizeof(bf16) * kFwdBQ * ldp);
-    o = cv.take(sizeof(float) * kFwdBQ * ldo);
-    m = cv.take(sizeof(float) * kFwdBQ);
-    l = cv.take(sizeof(float) * kFwdBQ);
-    a = cv.take(sizeof(float) * kFwdBQ);
-    bias = cv.take(sizeof(float) * kFwdBQ * bias_cols);
-    total = cv.off;
-  }
+// A block's share of the q rows: WARPS warps of 16 rows each.
+template <int WARPS>
+struct FwdTile {
+  static constexpr int kThreads = 32 * WARPS;
+  static constexpr int kBQ = 16 * WARPS;  // q rows per block
 };
 
-// A bias policy gives cols() (f32 values staged per q row), stage() (the q
-// tile's rows into shared memory), col(c) (what a key column needs, worked
-// out once per lane and tile) and add() (the bias of score (r, c)).
+// The q tile of the three flash forwards at each instantiated head dim, set
+// by hand to the faster of 64 rows on 4 warps and 128 rows on 8 warps as
+// measured on the card at the UNet's shapes (PERF.md has both times): 128
+// rows at 48 and 80, 64 rows elsewhere.
+template <int DP>
+using FlashTile = std::conditional_t<DP == 48 || DP == 80, FwdTile<8>, FwdTile<4>>;
+
+// K/V tiles in shared memory: three (two loading while one is multiplied)
+// where that leaves room for several blocks on an SM, else two.
+__host__ __device__ constexpr int fwd_stages(int dp) { return dp <= 80 ? 3 : 2; }
+
+// Bytes of dynamic shared memory of one block: Q, the K/V ring, the bias.
+template <int DP, class Tile>
+constexpr size_t fwd_smem_bytes(size_t bias_floats) {
+  return sizeof(bf16) * (DP + 8) * (Tile::kBQ + fwd_stages(DP) * 2 * kFwdBK) +
+         sizeof(float) * bias_floats;
+}
+
+// ---------------------------------------------------------------------------
+// PTX: cp.async, ldmatrix, mma.sync, ex2
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; the first src_bytes come from src, the rest are
+// zeros (src_bytes 0: nothing is read).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col-major).
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Rows of d bf16, ld elements apart, can move in whole 16-byte pieces.
+__device__ __forceinline__ bool rows_vectorize(const bf16* p, int ld, int d) {
+  return aligned16(p) && (ld & 7) == 0 && (d & 7) == 0;
+}
+
+// Rows [row0, row0 + ROWS) of an (L, d) bf16 matrix whose rows lie ld
+// elements apart, into a shared tile of DP columns (rows DP + 8 apart). Rows
+// >= L and columns >= d become zeros, so they add exact zeros to every
+// product that reads them. vec: rows_vectorize(src, ld, d); cp.async in
+// 16-byte pieces then, plain element loads and stores otherwise.
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int ld,
+                                          int row0, int L, int d, bool vec) {
+  constexpr int LDS = DP + 8;
+  if (vec) {
+    constexpr int PIECES = DP / 8;
+    for (int i = threadIdx.x; i < ROWS * PIECES; i += THREADS) {
+      const int r = i / PIECES, c = (i % PIECES) * 8;
+      const int gr = row0 + r;
+      const bool in = gr < L && c < d;
+      cp_async_16(dst + r * LDS + c, in ? src + (size_t)gr * ld + c : src, in ? 16 : 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.0f);
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+      const int r = i / DP, c = i % DP;
+      const int gr = row0 + r;
+      dst[r * LDS + c] = (gr < L && c < d) ? src[(size_t)gr * ld + c] : zero;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Bias policies
+// ---------------------------------------------------------------------------
+//
+// A bias policy gives smem_floats(rows) (f32 values staged for a q tile of
+// `rows` rows), stage() (the q tile's rows into shared memory, by cp.async;
+// the body commits and waits), col(c) / next(col, step) (what a key column
+// needs, worked out once per thread and tile and stepped from there) and
+// add2() (the bias of scores (r, c) and (r, c + 1), c even). Scores reach
+// add2 multiplied by scale * log2(e); it adds bias * log2(e).
 
 // No bias: the scaled scores as they are.
 struct NoBias {
   struct Col {};
-  __host__ __device__ int cols() const { return 0; }
-  __device__ void stage(float*, int /*bh*/, int /*q0*/) const {}
+  __host__ __device__ size_t smem_floats(int /*rows*/) const { return 0; }
+  __device__ void stage(float*, int /*bh*/, int /*q0*/, int /*rows*/) const {}
   __device__ Col col(int /*c*/) const { return {}; }
-  __device__ float add(float s, const float*, int /*r*/, Col) const { return s; }
+  __device__ Col next(Col c, int /*step*/) const { return c; }
+  __device__ void add2(float&, float&, const float*, int /*rows*/, int /*r*/, Col) const {}
 };
 
 // SAM's decomposed relative-position bias: bias_h (BH, N, gh) and bias_w
 // (BH, N, gw) f32 row-major, N = gh * gw, key c = kh * gw + kw; score (r, c)
-// gets bias_h[r, kh] + bias_w[r, kw], unscaled.
+// gets bias_h[r, kh] + bias_w[r, kw], unscaled, in f32.
+//
+// The staged rows are padded so that a warp's reads spread over the banks:
+// the 8 rows a warp reads at once lie sh = 4 (mod 8) floats apart for bias_h
+// (one 4-byte read a row, the four lanes of a row on one address) and
+// sw = 8 (mod 16) apart for bias_w (one 8-byte read of columns (c, c + 1) a
+// lane where gw is even, so that a pair never straddles a grid row).
 struct RelPosBias {
   struct Col {
     int h, w;  // kh and kw of key c
@@ -81,13 +227,17 @@ struct RelPosBias {
   const float* __restrict__ w;
   int n, gh, gw;
 
-  __host__ __device__ int cols() const { return gh + gw; }
+  __host__ __device__ int stride_h() const { return gh + ((4 - gh % 8) + 8) % 8; }
+  __host__ __device__ int stride_w() const { return gw + ((8 - gw % 16) + 16) % 16; }
+  __host__ __device__ size_t smem_floats(int rows) const {
+    return (size_t)rows * (stride_h() + stride_w());
+  }
 
-  // Rows [q0, q0 + kFwdBQ) of this batch*head's bias_h then bias_w into
-  // shared memory; rows >= n as zeros.
-  __device__ void stage(float* dst, int bh, int q0) const {
-    stage_rows(dst, h + (size_t)bh * n * gh, q0, gh);
-    stage_rows(dst + kFwdBQ * gh, w + (size_t)bh * n * gw, q0, gw);
+  // Rows [q0, q0 + rows) of this batch*head's bias_h then bias_w into shared
+  // memory; rows >= n as zeros.
+  __device__ void stage(float* dst, int bh, int q0, int rows) const {
+    stage_rows(dst, stride_h(), h + (size_t)bh * n * gh, gh, q0, rows);
+    stage_rows(dst + rows * stride_h(), stride_w(), w + (size_t)bh * n * gw, gw, q0, rows);
   }
 
   __device__ Col col(int c) const {
@@ -95,20 +245,57 @@ struct RelPosBias {
     return {kh, c - kh * gw};
   }
 
-  __device__ float add(float s, const float* sb, int r, Col c) const {
-    return s + sb[r * gh + c.h] + sb[kFwdBQ * gh + r * gw + c.w];
+  __device__ Col next(Col c, int step) const {
+    c.w += step;
+    while (c.w >= gw) {
+      c.w -= gw;
+      ++c.h;
+    }
+    return c;
+  }
+
+  // Columns past N (masked by the body afterwards) read padding or a
+  // neighbouring row: inside the staged block, and never used.
+  __device__ void add2(float& s0, float& s1, const float* sb, int rows, int r, Col c) const {
+    const float* sh = sb + r * stride_h();
+    const float* sw = sb + rows * stride_h() + r * stride_w();
+    if ((gw & 1) == 0) {
+      const float bh = sh[c.h];
+      const float2 bw = *reinterpret_cast<const float2*>(sw + c.w);
+      s0 = fmaf(bh + bw.x, kLog2e, s0);
+      s1 = fmaf(bh + bw.y, kLog2e, s1);
+    } else {
+      const Col c1 = next(c, 1);
+      s0 = fmaf(sh[c.h] + sw[c.w], kLog2e, s0);
+      s1 = fmaf(sh[c1.h] + sw[c1.w], kLog2e, s1);
+    }
   }
 
  private:
-  __device__ void stage_rows(float* dst, const float* __restrict__ src, int q0,
-                             int g) const {
-    for (int i = threadIdx.x; i < kFwdBQ * g; i += kThreads) {
-      const int r = i / g, c = i % g;
-      const int gr = q0 + r;
-      dst[i] = gr < n ? src[(size_t)gr * g + c] : 0.0f;
+  __device__ void stage_rows(float* dst, int stride, const float* __restrict__ src, int g,
+                             int q0, int rows) const {
+    if ((g & 3) == 0 && aligned16(src)) {
+      const int pieces = g / 4;
+      for (int i = threadIdx.x; i < rows * pieces; i += blockDim.x) {
+        const int r = i / pieces, c = (i % pieces) * 4;
+        const bool in = q0 + r < n;
+        cp_async_16(dst + r * stride + c, in ? src + (size_t)(q0 + r) * g + c : src,
+                    in ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows * g; i += blockDim.x) {
+        const int r = i / g, c = i % g;
+        const bool in = q0 + r < n;
+        cp_async_4(dst + r * stride + c, in ? src + (size_t)(q0 + r) * g + c : src,
+                   in ? 4 : 0);
+      }
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// The body
+// ---------------------------------------------------------------------------
 
 // One head's pointers and row strides (in elements) for the body.
 struct HeadView {
@@ -133,136 +320,259 @@ __device__ inline HeadView head_of_bhld(const bf16* q, const bf16* k, const bf16
           d, d, d, bh};
 }
 
-// The body of one block for the q tile at q0 of one head. Each source wraps
-// it in a __global__ kernel of its own name, so profiles tell them apart. A
-// kernel that runs it for several heads in turn puts a __syncthreads()
-// between them.
-template <class Bias>
+// The body of one block for the q tile at q0 of one head (Tile::kBQ rows,
+// d <= DP). Each source wraps it in a __global__ kernel of its own name, so
+// profiles tell them apart. A kernel that runs it for several heads in turn
+// puts a __syncthreads() between them.
+template <int DP, class Tile, class Bias>
 __device__ __forceinline__ void attention_fwd_body(const HeadView& hv, int q0, int Lq,
-                                                   int Lk, int d, int dp, float scale,
+                                                   int Lk, int d, float scale,
                                                    const Bias& bias, float m_init,
                                                    float l_min) {
+  constexpr int LDS = DP + 8;       // shared row pitch, elements
+  constexpr int KS = DP / 16;       // 16-deep steps of Q K^T
+  constexpr int NB = DP / 8;        // 8-wide column blocks of O
+  constexpr int BQ = Tile::kBQ;
+  constexpr int THREADS = Tile::kThreads;
+  constexpr int STAGES = fwd_stages(DP);
+  constexpr int STAGE_ELEMS = 2 * kFwdBK * LDS;  // one K tile and one V tile
+  constexpr bool KEEP_Q = DP <= 160;
+  static_assert(DP % 16 == 0, "the head dim is padded to whole 16-deep steps");
+
   extern __shared__ __align__(128) char smem[];
-  const FwdLayout lay(dp, bias.cols());
-  bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + lay.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + lay.v);
-  float* sS = reinterpret_cast<float*>(smem + lay.s);
-  bf16* sP = reinterpret_cast<bf16*>(smem + lay.p);
-  float* sO = reinterpret_cast<float*>(smem + lay.o);
-  float* sM = reinterpret_cast<float*>(smem + lay.m);
-  float* sL = reinterpret_cast<float*>(smem + lay.l);
-  float* sA = reinterpret_cast<float*>(smem + lay.a);
-  float* sB = reinterpret_cast<float*>(smem + lay.bias);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sKV = sQ + BQ * LDS;
+  float* sB = reinterpret_cast<float*>(sKV + STAGES * STAGE_ELEMS);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
+  const int wr0 = warp * 16;              // the warp's first row of the q tile
+  const float scale_log2 = scale * kLog2e;
+  const int ntiles = (Lk + kFwdBK - 1) / kFwdBK;
+  const bool vec_kv = rows_vectorize(hv.k, hv.ldkv, d) && rows_vectorize(hv.v, hv.ldkv, d);
 
-  load_tile_strided(sQ, lay.ldh, hv.q, hv.ldq, q0, kFwdBQ, Lq, d, dp);
-  bias.stage(sB, hv.bh, q0);
-  zero_f32(sO, kFwdBQ * lay.ldo);
-  for (int r = threadIdx.x; r < kFwdBQ; r += kThreads) {
-    sM[r] = m_init;
-    sL[r] = 0.0f;
+  auto load_kv = [&](int tile) {
+    bf16* sK = sKV + (tile % STAGES) * STAGE_ELEMS;
+    load_rows<DP, kFwdBK, THREADS>(sK, hv.k, hv.ldkv, tile * kFwdBK, Lk, d, vec_kv);
+    load_rows<DP, kFwdBK, THREADS>(sK + kFwdBK * LDS, hv.v, hv.ldkv, tile * kFwdBK, Lk, d,
+                                   vec_kv);
+  };
+
+  // Q and the bias rows travel in the first group, with KV tile 0.
+  load_rows<DP, BQ, THREADS>(sQ, hv.q, hv.ldq, q0, Lq, d, rows_vectorize(hv.q, hv.ldq, d));
+  bias.stage(sB, hv.bh, q0, BQ);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_kv(s);
+    cp_async_commit();
   }
 
-  for (int k0 = 0; k0 < Lk; k0 += kFwdBK) {
-    __syncthreads();  // the previous tile's readers of sK/sV/sP are done
-    load_tile_strided(sK, lay.ldh, hv.k, hv.ldkv, k0, kFwdBK, Lk, d, dp);
-    load_tile_strided(sV, lay.ldh, hv.v, hv.ldkv, k0, kFwdBK, Lk, d, dp);
-    __syncthreads();
-    warp_gemm<false, true>(sQ, lay.ldh, sK, lay.ldh, sS, lay.lds, kFwdBQ, kFwdBK, dp,
-                           false);
-    __syncthreads();
+  uint32_t qf[KEEP_Q ? KS : 1][4];
+  float o[NB][4];
+  float m[2], l[2];  // l: this lane's part of the row sum
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
+  }
+  m[0] = m[1] = m_init;
+  l[0] = l[1] = 0.0f;
 
-    // Bias and online softmax, one warp per row; each lane holds two columns.
-    const int c0 = k0 + lane, c1 = k0 + lane + 32;
-    const typename Bias::Col col0 = bias.col(c0), col1 = bias.col(c1);
-    for (int r = warp; r < kFwdBQ; r += kWarps) {
-      const float s0 =
-          c0 < Lk ? bias.add(sS[r * lay.lds + lane] * scale, sB, r, col0) : -INFINITY;
-      const float s1 =
-          c1 < Lk ? bias.add(sS[r * lay.lds + lane + 32] * scale, sB, r, col1) : -INFINITY;
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = __expf(s0 - m_new);
-      const float p1 = __expf(s1 - m_new);
-      const float row_sum = warp_sum(p0 + p1);
-      sP[r * lay.ldp + lane] = __float2bfloat16(p0);
-      sP[r * lay.ldp + lane + 32] = __float2bfloat16(p1);
-      if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);  // 0 on the first tile
-        sA[r] = alpha;
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + row_sum;
+  // ldmatrix lane offsets. A (rows x 16, row-major): lanes 0-15 rows 0-15 at
+  // column 0, lanes 16-31 the same rows at column 8. B of Q K^T from K rows
+  // (key-major): matrices (keys 0-7, k 0-7), (keys 0-7, k 8-15), (keys 8-15,
+  // k 0-7), (keys 8-15, k 8-15). B of P V from V rows through .trans:
+  // (keys 0-7, dims 0-7), (keys 8-15, dims 0-7), (keys 0-7, dims 8-15),
+  // (keys 8-15, dims 8-15).
+  const int a_off = (lane & 15) * LDS + (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * LDS + ((lane >> 3) & 1) * 8;
+  const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDS + (lane >> 4) * 8;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    // Tile `tile` has landed for this thread; after the barrier for all, and
+    // every warp is done with tile - 1, whose buffer the next load refills.
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (tile + STAGES - 1 < ntiles) load_kv(tile + STAGES - 1);
+    cp_async_commit();
+
+    if (KEEP_Q && tile == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        ldmatrix_x4(qf[KEEP_Q ? kk : 0], sQ + wr0 * LDS + kk * 16 + a_off);
       }
     }
-    __syncthreads();
-    for (int r = warp; r < kFwdBQ; r += kWarps) {
-      const float alpha = sA[r];
-      for (int c = lane; c < dp; c += 32) sO[r * lay.ldo + c] *= alpha;
-    }
-    __syncthreads();
-    warp_gemm<false, false>(sP, lay.ldp, sV, lay.ldh, sO, lay.ldo, kFwdBQ, dp, kFwdBK,
-                            true);
-  }
-  __syncthreads();
 
-  for (int r = warp; r < kFwdBQ; r += kWarps) {
-    const float inv = 1.0f / fmaxf(sL[r], l_min);
-    for (int c = lane; c < dp; c += 32) sO[r * lay.ldo + c] *= inv;
+    const bf16* sK = sKV + (tile % STAGES) * STAGE_ELEMS;
+    const bf16* sV = sK + kFwdBK * LDS;
+    const int k0 = tile * kFwdBK;
+
+    // S = Q K^T for the warp's rows and this tile's 64 keys.
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (!KEEP_Q) ldmatrix_x4(qf[0], sQ + wr0 * LDS + kk * 16 + a_off);
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {  // 16 keys
+        uint32_t b[4];
+        ldmatrix_x4(b, sK + j2 * 16 * LDS + kk * 16 + k_off);
+        mma_16816(s[2 * j2], qf[KEEP_Q ? kk : 0], b[0], b[1]);
+        mma_16816(s[2 * j2 + 1], qf[KEEP_Q ? kk : 0], b[2], b[3]);
+      }
+    }
+
+    // Scale into log2 units, add the bias, mask the columns past Lk. Element
+    // e of block j: row g + 8 * (e / 2), column 8 * j + 2 * t + e % 2.
+    typename Bias::Col col = bias.col(k0 + 2 * t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float& s0 = s[j][2 * hf];
+        float& s1 = s[j][2 * hf + 1];
+        s0 *= scale_log2;
+        s1 *= scale_log2;
+        bias.add2(s0, s1, sB, BQ, wr0 + g + 8 * hf, col);
+      }
+      col = bias.next(col, 8);
+    }
+    if (k0 + kFwdBK > Lk) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = k0 + 8 * j + 2 * t;
+        if (c >= Lk) s[j][0] = s[j][2] = -INFINITY;
+        if (c + 1 >= Lk) s[j][1] = s[j][3] = -INFINITY;
+      }
+    }
+
+    // Online softmax on the fragment; P repacked as the A operand of P V.
+    uint32_t p[4][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = fmaxf(s[0][2 * hf], s[0][2 * hf + 1]);
+#pragma unroll
+      for (int j = 1; j < 8; ++j) {
+        mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hf], mx);
+      const float alpha = ex2(m[hf] - m_new);  // 0 on the first tile
+      m[hf] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = ex2(s[j][2 * hf] - m_new);
+        const float p1 = ex2(s[j][2 * hf + 1] - m_new);
+        sum += p0 + p1;
+        // a0/a2: row g, a1/a3: row g + 8; a0/a1: keys 0-7, a2/a3: keys 8-15.
+        p[j / 2][hf + 2 * (j % 2)] = pack_bf16(p0, p1);
+      }
+      l[hf] = l[hf] * alpha + sum;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        o[nb][2 * hf] *= alpha;
+        o[nb][2 * hf + 1] *= alpha;
+      }
+    }
+
+    // O += P V.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 keys
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {  // 16 head-dim columns
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, sV + kk * 16 * LDS + n2 * 16 + v_off);
+        mma_16816(o[2 * n2], p[kk], b[0], b[1]);
+        mma_16816(o[2 * n2 + 1], p[kk], b[2], b[3]);
+      }
+    }
   }
-  __syncthreads();
-  store_tile_strided(hv.o, hv.ldo, sO, lay.ldo, q0, kFwdBQ, Lq, d);
-  if (hv.lse != nullptr) {
-    for (int r = threadIdx.x; r < kFwdBQ; r += kThreads) {
-      const int gr = q0 + r;
-      if (gr < Lq) hv.lse[gr] = sM[r] + logf(fmaxf(sL[r], l_min));
+
+  // Normalize; stage the warp's O rows as bf16 in its own rows of sQ (only
+  // this warp read them), then store in 16-byte pieces.
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float sum = l[hf];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum = fmaxf(sum, l_min);
+    const float inv = 1.0f / sum;
+    const int r = wr0 + g + 8 * hf;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      *reinterpret_cast<uint32_t*>(sQ + r * LDS + nb * 8 + 2 * t) =
+          pack_bf16(o[nb][2 * hf] * inv, o[nb][2 * hf + 1] * inv);
+    }
+    if (hv.lse != nullptr && t == 0 && q0 + r < Lq) {
+      hv.lse[q0 + r] = m[hf] * kLn2 + logf(sum);
+    }
+  }
+  __syncwarp();
+  if (rows_vectorize(hv.o, hv.ldo, d)) {
+    constexpr int PIECES = DP / 8;
+    for (int i = lane; i < 16 * PIECES; i += 32) {
+      const int r = wr0 + i / PIECES, c = (i % PIECES) * 8;
+      if (q0 + r < Lq && c < d) {
+        *reinterpret_cast<uint4*>(hv.o + (size_t)(q0 + r) * hv.ldo + c) =
+            *reinterpret_cast<const uint4*>(sQ + r * LDS + c);
+      }
+    }
+  } else {
+    for (int i = lane; i < 16 * DP; i += 32) {
+      const int r = wr0 + i / DP, c = i % DP;
+      if (q0 + r < Lq && c < d) hv.o[(size_t)(q0 + r) * hv.ldo + c] = sQ[r * LDS + c];
     }
   }
 }
 
-// Shared memory of one block of the body; sets the kernel's dynamic limit.
-// Returns a cudaError_t as int and the size in *bytes.
-template <class Kernel>
-int prepare_attention_fwd(Kernel kernel, int dp, int bias_cols, size_t* bytes) {
-  const FwdLayout lay(dp, bias_cols);
-  *bytes = lay.total;
-  if (lay.total > 232448) return (int)cudaErrorInvalidValue;  // 227 KB a block
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)lay.total);
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// Calls f(integral_constant<int, DP>) with the narrowest instantiated head
+// dim DP >= d up to MAX_DP (d <= MAX_DP is the caller's check); a source
+// names the widest it needs, so that it builds no wider one.
+template <int MAX_DP, class F>
+int dispatch_head_dim(int d, F&& f) {
+  if (d <= 48) return f(std::integral_constant<int, 48>{});
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if (d <= 80) return f(std::integral_constant<int, 80>{});
+  if (d <= 160) return f(std::integral_constant<int, 160>{});
+  if constexpr (MAX_DP > 160) {
+    if (d <= 256) return f(std::integral_constant<int, 256>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// A (BH, L, d) kernel: one block per 64-row q tile (blockIdx.x) and
-// batch*head (blockIdx.y), plain softmax.
-template <class Bias>
+// Sizes shared memory for one block of the body and launches `kernel`.
+// Returns a cudaError_t as int.
+template <int DP, class Tile, class... Params, class... Args>
+int launch_attention_fwd(void (*kernel)(Params...), dim3 grid, size_t bias_floats,
+                         void* stream, Args... args) {
+  const size_t smem = fwd_smem_bytes<DP, Tile>(bias_floats);
+  if (smem > kMaxBlockSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, Tile::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// A (BH, L, d) kernel's block: one q tile (blockIdx.x) of one batch*head
+// (blockIdx.y), plain softmax.
+template <int DP, class Tile, class Bias>
 __device__ __forceinline__ void attention_fwd_bhld(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int Lq, int Lk, int d, int dp,
-    float scale, const Bias& bias) {
-  attention_fwd_body(head_of_bhld(q, k, v, o, lse, blockIdx.y, Lq, Lk, d),
-                     blockIdx.x * kFwdBQ, Lq, Lk, d, dp, scale, bias, -INFINITY, 0.0f);
-}
-
-template <class Bias>
-using AttentionFwdKernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*, float*,
-                                    int, int, int, int, float, Bias);
-
-// Sizes shared memory and launches a (BH, L, d) `kernel` with one block per
-// 64-row q tile and batch*head. Returns a cudaError_t as int.
-template <class Bias>
-int launch_attention_fwd(AttentionFwdKernel<Bias> kernel, const void* q, const void* k,
-                         const void* v, void* o, void* lse, int bh, int lq, int lk, int d,
-                         Bias bias, void* stream) {
-  const int dp = round_up(d, 16);
-  size_t smem = 0;
-  const int err = prepare_attention_fwd(kernel, dp, bias.cols(), &smem);
-  if (err != 0) return err;
-  const dim3 grid((lq + kFwdBQ - 1) / kFwdBQ, bh);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse), lq,
-      lk, d, dp, 1.0f / sqrtf((float)d), bias);
-  return (int)cudaGetLastError();
+    bf16* __restrict__ o, float* __restrict__ lse, int Lq, int Lk, int d, float scale,
+    const Bias& bias) {
+  attention_fwd_body<DP, Tile>(head_of_bhld(q, k, v, o, lse, blockIdx.y, Lq, Lk, d),
+                               blockIdx.x * Tile::kBQ, Lq, Lk, d, scale, bias, -INFINITY,
+                               0.0f);
 }
 
 }  // namespace

@@ -1,12 +1,14 @@
-// Shared pieces of the port's kernels: flash_bwd.cu, the forward body of
-// attention_fwd.cuh (which flash_fwd.cu, flash_fwd_packed.cu,
-// flash_fwd_fusedheads.cu and sam_attention.cu run), and the warp reductions
-// pair_stats.cu uses.
+// Shared pieces of the port's kernels: the types and the shared-memory
+// carving every source uses, the warp reductions pair_stats.cu uses, and the
+// WMMA tile product (warp_gemm) with its cooperative tile loads and stores,
+// which only the backward (flash_bwd.cu) still uses: the forward body
+// (attention_fwd.cuh) keeps its scores and accumulators in registers and
+// issues mma.sync itself.
 //
-// Every matrix product is done by warps on bf16 tensor-core tiles through
-// the WMMA API (16x16x16, f32 accumulate). Operands and accumulators live in
-// shared memory; the block's threads do the elementwise work between
-// products. That keeps each kernel a short sequence of
+// In flash_bwd.cu every matrix product is done by warps on bf16 tensor-core
+// tiles through the WMMA API (16x16x16, f32 accumulate). Operands and
+// accumulators live in shared memory; the block's threads do the elementwise
+// work between products. That keeps the kernel a short sequence of
 //   cooperative load -> sync -> warp_gemm -> sync -> elementwise -> sync
 // steps, simple to check by reading. Head dims that are not a multiple of
 // 16 (SD1.x: 40) are zero-padded to one on the load into shared memory.
@@ -39,50 +41,35 @@ struct Carve {
   }
 };
 
-// Loads rows [row0, row0 + rows) of an (L, d) bf16 matrix whose rows lie
-// src_ld elements apart into a shared tile of width dp (leading dimension
-// ld). Rows >= L and columns >= d are written as zeros, so padded rows and
-// columns add exact zeros to every product that reads them.
-__device__ inline void load_tile_strided(bf16* dst, int ld, const bf16* __restrict__ src,
-                                         int src_ld, int row0, int rows, int L, int d,
-                                         int dp) {
+// Loads rows [row0, row0 + rows) of a row-major (L, d) bf16 matrix into a
+// shared tile of width dp (leading dimension ld). Rows >= L and columns >= d
+// are written as zeros, so padded rows and columns add exact zeros to every
+// product that reads them.
+__device__ inline void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
+                                 int row0, int rows, int L, int d, int dp) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bf16 zero = __float2bfloat16(0.0f);
   for (int r = warp; r < rows; r += kWarps) {
     const int gr = row0 + r;
-    const bf16* row = src + (size_t)gr * src_ld;
+    const bf16* row = src + (size_t)gr * d;
     for (int c = lane; c < dp; c += 32) {
       dst[r * ld + c] = (gr < L && c < d) ? row[c] : zero;
     }
   }
 }
 
-// The same for a row-major (L, d) matrix (rows d elements apart).
-__device__ inline void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
-                                 int row0, int rows, int L, int d, int dp) {
-  load_tile_strided(dst, ld, src, d, row0, rows, L, d, dp);
-}
-
-// Writes rows [row0, row0 + rows) of an f32 shared tile back to an (L, d)
-// bf16 matrix whose rows lie dst_ld elements apart, skipping rows >= L and
-// the padded columns.
-__device__ inline void store_tile_strided(bf16* __restrict__ dst, int dst_ld,
-                                          const float* src, int ld, int row0, int rows,
-                                          int L, int d) {
+// Writes rows [row0, row0 + rows) of an f32 shared tile back to a row-major
+// (L, d) bf16 matrix, skipping rows >= L and the padded columns.
+__device__ inline void store_tile(bf16* __restrict__ dst, const float* src, int ld,
+                                  int row0, int rows, int L, int d) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kWarps) {
     const int gr = row0 + r;
     if (gr >= L) continue;
     for (int c = lane; c < d; c += 32) {
-      dst[(size_t)gr * dst_ld + c] = __float2bfloat16(src[r * ld + c]);
+      dst[(size_t)gr * d + c] = __float2bfloat16(src[r * ld + c]);
     }
   }
-}
-
-// The same for a row-major (L, d) matrix.
-__device__ inline void store_tile(bf16* __restrict__ dst, const float* src, int ld,
-                                  int row0, int rows, int L, int d) {
-  store_tile_strided(dst, d, src, ld, row0, rows, L, d);
 }
 
 __device__ inline void zero_f32(float* dst, int n) {

@@ -14,25 +14,27 @@
 // operations; the 77-token cross-attention does ~77 operations per byte of
 // q and o and is bound by bytes.
 //
-// Design. One block per (64-row q tile, head, image) runs attention_fwd.cuh's
-// body on pointers offset by head * d with a row stride of H * d, so the only
-// change against flash_fwd.cu is the addressing. KV is walked in 64-row
-// tiles, so the kernel has no KV-length limit of its own (the wrapper's size
-// rule is the reference's dispatch, not this kernel's). A head's slice of a
-// row is d * 2 bytes at a byte offset of head * d * 2 (80 bytes at d = 40):
-// a multiple of 16 bytes, not of 128, so a later TMA or swizzled load will
-// have to fetch whole rows. The backward splits heads and runs flash_bwd.cu,
-// as the TPU side does.
+// Design. One block per (q tile, head, image) runs attention_fwd.cuh's body
+// (registers, mma.sync, a cp.async K/V ring) on pointers offset by head * d
+// with a row stride of H * d, so the only change against flash_fwd.cu is the
+// addressing. KV is walked in 64-row tiles, so the kernel has no KV-length
+// limit of its own (the wrapper's size rule is the reference's dispatch, not
+// this kernel's). A head's slice of a row is d * 2 bytes at a byte offset of
+// head * d * 2 (80 bytes at d = 40): a multiple of 16 bytes, which is all
+// the body's 16-byte cp.async pieces need, but not of 128, so a later TMA
+// load will have to fetch whole rows. The backward splits heads and runs
+// flash_bwd.cu, as the TPU side does.
 #include "attention_fwd.cuh"
 
 namespace lmdx {
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+template <int DP, class Tile>
+__global__ void __launch_bounds__(Tile::kThreads)
 flash_fwd_fusedheads_kernel(const bf16* __restrict__ qf, const bf16* __restrict__ kf,
                             const bf16* __restrict__ vf, bf16* __restrict__ of,
                             float* __restrict__ lse, int heads, int Lq, int Lk, int d,
-                            int dp, float scale) {
+                            float scale) {
   const int head = blockIdx.y, b = blockIdx.z;
   const int hd = heads * d;
   const int bh = b * heads + head;
@@ -42,8 +44,8 @@ flash_fwd_fusedheads_kernel(const bf16* __restrict__ qf, const bf16* __restrict_
                     of + (size_t)b * Lq * hd + head * d,
                     lse + (size_t)bh * Lq,
                     hd, hd, hd, bh};
-  attention_fwd_body(hv, blockIdx.x * kFwdBQ, Lq, Lk, d, dp, scale, NoBias{}, -INFINITY,
-                     0.0f);
+  attention_fwd_body<DP, Tile>(hv, blockIdx.x * Tile::kBQ, Lq, Lk, d, scale, NoBias{},
+                               -INFINITY, 0.0f);
 }
 
 }  // namespace
@@ -57,14 +59,14 @@ extern "C" int lmdx_flash_fwd_fusedheads(const void* qf, const void* kf, const v
       d <= 0 || d > 256) {
     return (int)cudaErrorInvalidValue;
   }
-  const int dp = round_up(d, 16);
-  size_t smem = 0;
-  const int err = prepare_attention_fwd(flash_fwd_fusedheads_kernel, dp, 0, &smem);
-  if (err != 0) return err;
-  const dim3 grid((lq + kFwdBQ - 1) / kFwdBQ, heads, batch);
-  flash_fwd_fusedheads_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qf), static_cast<const bf16*>(kf),
-      static_cast<const bf16*>(vf), static_cast<bf16*>(of), static_cast<float*>(lse),
-      heads, lq, lk, d, dp, 1.0f / sqrtf((float)d));
-  return (int)cudaGetLastError();
+  return dispatch_head_dim<256>(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    using Tile = FlashTile<DP>;
+    const dim3 grid((lq + Tile::kBQ - 1) / Tile::kBQ, heads, batch);
+    return launch_attention_fwd<DP, Tile>(
+        flash_fwd_fusedheads_kernel<DP, Tile>, grid, 0, stream,
+        static_cast<const bf16*>(qf), static_cast<const bf16*>(kf),
+        static_cast<const bf16*>(vf), static_cast<bf16*>(of), static_cast<float*>(lse),
+        heads, lq, lk, d, 1.0f / sqrtf((float)d));
+  });
 }

@@ -16,32 +16,34 @@
 // served `pack` heads. A Hopper tensor-core tile is 16 deep, so head dim 40
 // (padded to 48) wastes little and the block-diagonal copy would only add
 // traffic; it is not carried over. What is kept is the grouping: one block
-// serves one 64-row q tile of one group of up to `pack` heads, head after
-// head, each with attention_fwd.cuh's online softmax over 64-row KV tiles
-// (row max from -1e30, denominator clamped at 1e-30, as the TPU kernel).
-// The grid has ceil(H / pack) groups per image; the heads that pad the last
-// group (8 heads, pack 3: one) are skipped, so nothing is computed or
-// written for them. Fewer, longer blocks than flash_fwd.cu's one per head:
-// whether that helps on this card is a measurement (PERF.md), not a claim.
+// serves one q tile of one group of up to `pack` heads, head after head,
+// each through attention_fwd.cuh's body (registers, mma.sync, a cp.async K/V
+// ring; row max from -1e30, denominator clamped at 1e-30, as the TPU
+// kernel). The grid has ceil(H / pack) groups per image; the heads that pad
+// the last group (8 heads, pack 3: one) are skipped, so nothing is computed
+// or written for them. Fewer, longer blocks than flash_fwd.cu's one per
+// head: whether that helps on this card is a measurement (PERF.md), not a
+// claim.
 #include "attention_fwd.cuh"
 
 namespace lmdx {
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+template <int DP, class Tile>
+__global__ void __launch_bounds__(Tile::kThreads)
 flash_fwd_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o,
                         float* __restrict__ lse, int heads, int pack, int groups, int Lq,
-                        int Lk, int d, int dp, float scale) {
+                        int Lk, int d, float scale) {
   const int b = blockIdx.y / groups;
   const int group = blockIdx.y % groups;
-  const int q0 = blockIdx.x * kFwdBQ;
+  const int q0 = blockIdx.x * Tile::kBQ;
   for (int p = 0; p < pack; ++p) {
     const int head = group * pack + p;
     if (head >= heads) break;  // a head that only pads the last group
-    if (p > 0) __syncthreads();  // the previous head's stores have read sO/sM/sL
-    attention_fwd_body(head_of_bhld(q, k, v, o, lse, b * heads + head, Lq, Lk, d), q0, Lq,
-                       Lk, d, dp, scale, NoBias{}, -1e30f, 1e-30f);
+    if (p > 0) __syncthreads();  // the previous head's warps are done with shared memory
+    attention_fwd_body<DP, Tile>(head_of_bhld(q, k, v, o, lse, b * heads + head, Lq, Lk, d),
+                                 q0, Lq, Lk, d, scale, NoBias{}, -1e30f, 1e-30f);
   }
 }
 
@@ -57,14 +59,13 @@ extern "C" int lmdx_flash_fwd_packed(const void* q, const void* k, const void* v
   }
   const int groups = (heads + pack - 1) / pack;
   if ((long long)batch * groups > 65535) return (int)cudaErrorInvalidValue;
-  const int dp = round_up(d, 16);
-  size_t smem = 0;
-  const int err = prepare_attention_fwd(flash_fwd_packed_kernel, dp, 0, &smem);
-  if (err != 0) return err;
-  const dim3 grid((lq + kFwdBQ - 1) / kFwdBQ, batch * groups);
-  flash_fwd_packed_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse), heads,
-      pack, groups, lq, lk, d, dp, 1.0f / sqrtf((float)d));
-  return (int)cudaGetLastError();
+  return dispatch_head_dim<256>(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    using Tile = FlashTile<DP>;
+    const dim3 grid((lq + Tile::kBQ - 1) / Tile::kBQ, batch * groups);
+    return launch_attention_fwd<DP, Tile>(
+        flash_fwd_packed_kernel<DP, Tile>, grid, 0, stream, static_cast<const bf16*>(q),
+        static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
+        static_cast<float*>(lse), heads, pack, groups, lq, lk, d, 1.0f / sqrtf((float)d));
+  });
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -76,6 +77,40 @@ def build(names=SOURCES) -> dict[str, Path]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return targets
+
+
+def _short_kernel_name(mangled: str) -> str:
+    """`flash_fwd_kernel<48,8>` from an Itanium-mangled kernel name: the
+    length-prefixed identifier that ends in `_kernel` and the integer template
+    arguments after it."""
+    for m in re.finditer(r"\d+", mangled):
+        for start in range(m.start(), m.end()):  # a hash may end in digits
+            ident = mangled[m.end():m.end() + int(mangled[start:m.end()])]
+            if ident.endswith("_kernel") and re.fullmatch(r"[a-z_0-9]+", ident):
+                ints = re.findall(r"Li(\d+)E", mangled[m.end() + len(ident):])
+                return ident + ("<" + ",".join(ints) + ">" if ints else "")
+    return mangled
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """One entry per kernel of a source's `-Xptxas -v` messages: its name
+    with the integer template arguments (`flash_fwd_kernel<48,8>`: head dim,
+    warps), registers a thread and spilled bytes (stores + loads)."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _short_kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append({"kernel": name, "registers": int(m.group(1)), "spill_bytes": spill})
+            name, spill = None, 0
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

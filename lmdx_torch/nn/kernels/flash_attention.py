@@ -20,6 +20,9 @@ A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches its kernel or raises. `FlashAttention` and `FusedHeadsAttention` wire
 them into autograd, as `jax.custom_vjp` does on the JAX side; both take their
 gradient from `flash_attention_bwd` (the fused-heads one after a head split).
+`attention_fwd_tiled_plain` repeats, step by step, the arithmetic of the
+forward body that the three forward kernels and SAM's share
+(`csrc/attention_fwd.cuh`); the CPU tests hold it against the plain versions.
 
 Dispatch (the attention layers call it for their untapped attentions):
 
@@ -69,6 +72,48 @@ def attention_fwd_plain(q, k, v):
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.matmul(p, v.float()).to(q.dtype), lse
+
+
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+_KV_TILE = 64
+
+
+def attention_fwd_tiled_plain(q, k, v, rel_pos=None, m_init=float("-inf"), l_min=0.0):
+    """(o, lse) by the arithmetic of the CUDA forward body
+    (`csrc/attention_fwd.cuh`), step by step: 64-row KV tiles; scores in log2
+    units (`scale * log2(e)` folded into one multiply, `exp2` for `exp`); the
+    row max started at `m_init`; the row sum taken on the unrounded
+    probabilities and clamped from below at `l_min`; the probabilities
+    rounded to v's dtype for the P V product; the LSE converted back to
+    natural units. `rel_pos` is SAM's decomposed bias `(bias_h, bias_w)`,
+    (B, h, Lq, gh) and (B, h, Lq, gw) with Lk = gh * gw, added unscaled in
+    f32 (times log2(e), as every score). `(-inf, 0)` is the plain softmax;
+    the head-packed kernel runs `(-1e30, 1e-30)`. q: (B, h, Lq, d), k/v:
+    (B, h, Lk, d). The kernels are held to the one-pass plain versions; this
+    one shows on the CPU that the body's steps give the same function."""
+    lk, d = k.shape[2], q.shape[-1]
+    scale_log2 = d ** -0.5 * _LOG2E
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:3], m_init, device=q.device, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, lk, _KV_TILE):
+        k1 = min(k0 + _KV_TILE, lk)
+        s = torch.matmul(qf, kf[:, :, k0:k1].transpose(-1, -2)) * scale_log2
+        if rel_pos is not None:
+            bias_h, bias_w = rel_pos
+            cols = torch.arange(k0, k1, device=q.device)
+            gw = bias_w.shape[-1]
+            s = s + (bias_h.float()[..., cols // gw] + bias_w.float()[..., cols % gw]) * _LOG2E
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(), vf[:, :, k0:k1])
+        m = m_new
+    l = l.clamp_min(l_min)
+    return (acc / l[..., None]).to(q.dtype), m * _LN2 + torch.log(l)
 
 
 def attention_plain(q, k, v):

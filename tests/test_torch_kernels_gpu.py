@@ -32,6 +32,12 @@ SHAPES = [
     (8, 4096, 4126, 40),
     (32, 4096, 4096, 40),   # LMD's per-box guidance: 4 boxes x 8 heads
     (2, 100, 300, 32),      # ragged q and kv tails
+    (3, 100, 300, 20),      # head dim not a multiple of 8: element-wise loads
+    (4, 8, 300, 40),        # Lq = 8: half of a warp's 16 rows
+    (4, 100, 30, 40),       # KV shorter than one tile
+    (4, 70, 77, 64),        # KV shorter than two tiles
+    (2, 130, 200, 256),     # the general head-dim instantiation
+    (2, 130, 200, 96),      # head dim between two instantiated widths
 ]
 
 
@@ -79,6 +85,56 @@ def test_backward_matches_plain(cuda, bh, lq, lk, d):
         _close(g, w)
 
 
+def _shifted(t, elements=1):
+    """A contiguous copy of `t` whose storage starts `elements` past an
+    allocation: its pointer is not a multiple of 16 bytes."""
+    buf = torch.empty(t.numel() + elements, device=t.device, dtype=t.dtype)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("which", ["q", "kv", "all"])
+@pytest.mark.parametrize("bh,lq,lk,d", [(4, 100, 300, 40), (2, 256, 286, 160)])
+def test_forward_takes_pointers_off_16_bytes(cuda, bh, lq, lk, d, which):
+    """The 16-byte cp.async path needs aligned rows; a tensor that starts 2
+    bytes into an allocation takes the element-wise loads and gives the same
+    result, bit for bit."""
+    q, k, v, _ = _inputs(bh, lq, lk, d, cuda, seed=7)
+    o_ref, lse_ref = fa.flash_attention_fwd(q, k, v)
+    if which in ("q", "all"):
+        q = _shifted(q)
+    if which in ("kv", "all"):
+        k, v = _shifted(k), _shifted(v)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(8, 4096, 4126, 40), (16, 256, 286, 160),
+                                        (3, 100, 300, 20)])
+def test_forward_is_bit_equal_from_run_to_run(cuda, bh, lq, lk, d):
+    """One owner per output element and a fixed order of sums: no atomics."""
+    q, k, v, _ = _inputs(bh, lq, lk, d, cuda, seed=8)
+    o1, lse1 = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+def test_forward_matches_the_tiled_plain_more_closely_than_the_one_pass_plain(cuda):
+    """`attention_fwd_tiled_plain` repeats the body's arithmetic (tiles, exp2,
+    bf16 P), so only O's last rounding and the order of f32 sums differ: the
+    LSE agrees to 1e-4 and O to one bf16 ulp of the largest entry."""
+    q, k, v, _ = _inputs(4, 200, 300, 40, cuda, seed=9)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_tiled_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(o, o_ref, rel=2 ** -7)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
 def test_wrapper_counts_and_rejects(cuda):
     q, k, v, _ = _inputs(2, 64, 256, 40, cuda)
     fa.reset_launch_counts()
@@ -97,6 +153,9 @@ SAM_SHAPES = [
     (6, 16, 13, 32),        # non-square grid, N = 208
     (1200, 14, 14, 64),     # main path: 4 images x 25 windows x 12 heads
     (48, 64, 64, 64),       # main path: global layers, 4 images x 12 heads
+    (2, 40, 6, 32),         # grid rows shorter than 8 keys, N = 240
+    (2, 7, 30, 32),         # N = 210: two keys in the last tile
+    (2, 4, 4, 128),         # the widest head the kernel takes, one short tile
 ]
 
 
@@ -119,6 +178,21 @@ def test_sam_attention_matches_plain(cuda, bh, gh, gw, d):
     want = sa.sam_attention_plain(*args)
     torch.cuda.synchronize()
     _close(got, want)
+
+
+def test_sam_attention_is_bit_equal_from_run_to_run(cuda):
+    args = _sam_inputs(24, 14, 14, 64, cuda, seed=10)
+    first, second = sa.sam_attention(*args), sa.sam_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_sam_attention_matches_the_tiled_plain(cuda):
+    q, k, v, bias_h, bias_w = _sam_inputs(4, 16, 13, 32, cuda, seed=11)
+    got = sa.sam_attention(q, k, v, bias_h, bias_w)
+    want, _ = fa.attention_fwd_tiled_plain(q, k, v, rel_pos=(bias_h, bias_w))
+    torch.cuda.synchronize()
+    _close(got, want, rel=2 ** -7)
 
 
 def test_sam_wrapper_counts_and_rejects(cuda):

@@ -8,8 +8,8 @@ Five phases; any failure exits nonzero before the final line is printed.
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    six), one nvcc per source, all started together, into build/kernels/, and
    prints each kernel's registers and spilled bytes (`ptxas -v`). Fails if
-   an instantiation of the attention forward body for a head dim the paths
-   use (48, 64, 80, 160) spills.
+   an attention kernel (the forward body's four kernels and the backward's
+   two) instantiated for a head dim the paths use (48, 64, 80, 160) spills.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes. Flash attention: 8 heads; (L, head_dim) =
    (4096, 40), (1024, 80), (256, 160); at every batch and KV the two driven
@@ -33,11 +33,12 @@ Five phases; any failure exits nonzero before the final line is printed.
    The opt-in kernels, at every shape and batch the opt-in path (phase 5)
    gives them: the head-packed forward at L = 4096, d = 40 (KV = L and
    L + 30, batch 8/4/2), timed in turn with the per-head forward on the same
-   inputs; the fused-heads forward on the projection layout (B, L, 8 * d) at
-   the self and fuser shapes of the 1024-, 256- and 64-token levels and the
-   77-token cross-attention of every level (batch 8/4/2); the backward at
-   the short KV lengths the fused-heads gradient adds (KV = 77, 64, 94;
-   batch 2); `pair_stats` on bf16 (x, x) at every (C, N) of the UNet's
+   inputs, which it must equal bit for bit (one block per q tile and head on
+   kernel 1's tile); the fused-heads forward on the projection layout
+   (B, L, 8 * d) at the self and fuser shapes of the 1024-, 256- and 64-token
+   levels and the 77-token cross-attention of every level (batch 8/4/2); the
+   backward at the short KV lengths the fused-heads gradient adds (KV = 77,
+   64, 94; batch 2); `pair_stats` on bf16 (x, x) at every (C, N) of the UNet's
    GroupNorms (batch 8/4/2) and on f32 (a, b) at those of the guidance
    forward (batch 2), held to 1e-3 * max|plain| (f32 sums in another
    order), bound by bytes, library = `a.sum(-1)` with `(a * b).sum(-1)`
@@ -145,10 +146,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# Head dims the attention forward body is instantiated for and the three
-# paths use (40 -> 48, 64, 80, 160): none of their kernels may spill.
+# Head dims the attention kernels are instantiated for and the three paths
+# use (40 -> 48, 64, 80, 160): none of their kernels may spill.
 PATH_HEAD_DIMS = ("48", "64", "80", "160")
-FORWARD_SOURCES = ("flash_fwd", "sam_attention", "flash_fwd_packed", "flash_fwd_fusedheads")
+ATTENTION_SOURCES = ("flash_fwd", "flash_bwd", "sam_attention", "flash_fwd_packed",
+                     "flash_fwd_fusedheads")
 
 
 def phase_build():
@@ -163,8 +165,8 @@ def phase_build():
         for k in buildlib.ptxas_report(text):
             log(f"  ptxas {name}: {k['kernel']}: {k['registers']} registers, "
                 f"{k['spill_bytes']} bytes spilled")
-            head_dim = k["kernel"].partition("<")[2].split(",")[0]
-            if k["spill_bytes"] and name in FORWARD_SOURCES and head_dim in PATH_HEAD_DIMS:
+            head_dim = re.split(r"[,>]", k["kernel"].partition("<")[2])[0]
+            if k["spill_bytes"] and name in ATTENTION_SOURCES and head_dim in PATH_HEAD_DIMS:
                 spilled.append(k["kernel"])
     if spilled:
         fail(f"build: kernels of the paths' head dims spill registers: {spilled}")
@@ -427,7 +429,11 @@ def phase_optin_kernels():
             if not (ok_o and e_l <= TOL_LSE):
                 fail(f"packed forward disagrees at B={b} L={L} Lk={lk} d={d}: |dO|={e_o} "
                      f"|dLSE|={e_l}")
-            del o, lse, o_ref, lse_ref
+            o_one, lse_one = fa.flash_attention_fwd(q, k, v)
+            if not (torch.equal(o, o_one) and torch.equal(lse, lse_one)):
+                fail(f"packed forward differs from the per-head kernel at B={b} L={L} "
+                     f"Lk={lk} d={d}")
+            del o, lse, o_ref, lse_ref, o_one, lse_one
             bh = b * heads
             flops = 4 * bh * L * lk * d
             nbytes = 2 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
@@ -444,7 +450,8 @@ def phase_optin_kernels():
             _add(packed, ms, plain, bound, lib, e_o)
             log(f"  packed B={b} h={heads} Lq={L} Lk={lk} d={d}: "
                 f"{_fmt(ms, plain, lib, bound, flops)}, per-head kernel {per_head:.3f} ms "
-                f"(turns {[round(t, 3) for t in turns]}) err O {e_o:.2e} LSE {e_l:.2e}")
+                f"(turns {[round(t, 3) for t in turns]}, packed/per-head {ms / per_head:.3f}; "
+                f"equal bit for bit) err O {e_o:.2e} LSE {e_l:.2e}")
             del q, k, v
             torch.cuda.empty_cache()
     log(f"  packed: {packed['ms']:.3f} ms over {len(PACKED_CASES) * len(OPTIN_BATCHES)} "

@@ -1,127 +1,156 @@
-// Shared pieces of the port's kernels: the types and the shared-memory
-// carving every source uses, the warp reductions pair_stats.cu uses, and the
-// WMMA tile product (warp_gemm) with its cooperative tile loads and stores,
-// which only the backward (flash_bwd.cu) still uses: the forward body
-// (attention_fwd.cuh) keeps its scores and accumulators in registers and
-// issues mma.sync itself.
-//
-// In flash_bwd.cu every matrix product is done by warps on bf16 tensor-core
-// tiles through the WMMA API (16x16x16, f32 accumulate). Operands and
-// accumulators live in shared memory; the block's threads do the elementwise
-// work between products. That keeps the kernel a short sequence of
-//   cooperative load -> sync -> warp_gemm -> sync -> elementwise -> sync
-// steps, simple to check by reading. Head dims that are not a multiple of
-// 16 (SD1.x: 40) are zero-padded to one on the load into shared memory.
+// Shared pieces of the port's kernels: the types, the warp reduction
+// pair_stats.cu uses, the head-dim dispatch, and the PTX wrappers and
+// cp.async row loads that both directions of attention use (the forward
+// body in attention_fwd.cuh and the backward in flash_bwd.cu): cp.async
+// (16- and 4-byte, zero-fill), ldmatrix (plain and .trans), mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), ex2.approx, bf16 packing and the
+// zero-filling row load. Both directions keep their scores and accumulators
+// in registers and issue mma.sync themselves; nothing here goes through
+// shared-memory accumulators.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stddef.h>
+#include <stdint.h>
 #include <type_traits>
 
 namespace lmdx {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Carves a dynamic shared-memory buffer into 128-byte aligned regions. The
-// host replays the same sequence of take() calls to size the launch.
-struct Carve {
-  size_t off = 0;
-  __host__ __device__ size_t take(size_t bytes) {
-    size_t out = off;
-    off += (bytes + 127) / 128 * 128;
-    return out;
-  }
-};
-
-// Loads rows [row0, row0 + rows) of a row-major (L, d) bf16 matrix into a
-// shared tile of width dp (leading dimension ld). Rows >= L and columns >= d
-// are written as zeros, so padded rows and columns add exact zeros to every
-// product that reads them.
-__device__ inline void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
-                                 int row0, int rows, int L, int d, int dp) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16 zero = __float2bfloat16(0.0f);
-  for (int r = warp; r < rows; r += kWarps) {
-    const int gr = row0 + r;
-    const bf16* row = src + (size_t)gr * d;
-    for (int c = lane; c < dp; c += 32) {
-      dst[r * ld + c] = (gr < L && c < d) ? row[c] : zero;
-    }
-  }
-}
-
-// Writes rows [row0, row0 + rows) of an f32 shared tile back to a row-major
-// (L, d) bf16 matrix, skipping rows >= L and the padded columns.
-__device__ inline void store_tile(bf16* __restrict__ dst, const float* src, int ld,
-                                  int row0, int rows, int L, int d) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += kWarps) {
-    const int gr = row0 + r;
-    if (gr >= L) continue;
-    for (int c = lane; c < d; c += 32) {
-      dst[(size_t)gr * d + c] = __float2bfloat16(src[r * ld + c]);
-    }
-  }
-}
-
-__device__ inline void zero_f32(float* dst, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = 0.0f;
-}
-
-// C (M x N, f32, row-major, ldc) = [C +] A (M x K) * B (K x N), with A and B
-// bf16 in shared memory. A_T: A is stored transposed (element (m, k) at
-// A[k * lda + m]); B_T: B is stored transposed (element (k, n) at
-// B[n * ldb + k]). M, N, K are multiples of 16; each warp owns whole 16x16
-// output tiles. lda/ldb must be multiples of 8 and ldc of 4, and every
-// region must start 32-byte aligned (Carve gives 128).
-template <bool A_T, bool B_T>
-__device__ inline void warp_gemm(const bf16* A, int lda, const bf16* B, int ldb,
-                                 float* C, int ldc, int M, int N, int K,
-                                 bool accumulate) {
-  using namespace nvcuda;
-  using LayoutA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LayoutB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x / 32;
-  const int tiles_n = N / 16;
-  const int tiles = (M / 16) * tiles_n;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int mi = (t / tiles_n) * 16;
-    const int ni = (t % tiles_n) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate) {
-      wmma::load_matrix_sync(acc, C + mi * ldc + ni, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc, 0.0f);
-    }
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b;
-      const bf16* pa = A_T ? A + k * lda + mi : A + mi * lda + k;
-      const bf16* pb = B_T ? B + ni * ldb + k : B + k * ldb + ni;
-      wmma::load_matrix_sync(a, pa, lda);
-      wmma::load_matrix_sync(b, pb, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + mi * ldc + ni, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-__device__ inline float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr size_t kMaxBlockSmem = 232448;  // 227 KB a block
 
 __device__ inline float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
+namespace {
+
+// ---------------------------------------------------------------------------
+// PTX: cp.async, ldmatrix, mma.sync, ex2
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; the first src_bytes come from src, the rest are
+// zeros (src_bytes 0: nothing is read).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col-major).
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Rows of d bf16, ld elements apart, can move in whole 16-byte pieces.
+__device__ __forceinline__ bool rows_vectorize(const bf16* p, int ld, int d) {
+  return aligned16(p) && (ld & 7) == 0 && (d & 7) == 0;
+}
+
+// Rows [row0, row0 + ROWS) of an (L, d) bf16 matrix whose rows lie ld
+// elements apart, into a shared tile of DP columns (rows DP + 8 apart). Rows
+// >= L and columns >= d become zeros, so they add exact zeros to every
+// product that reads them. vec: rows_vectorize(src, ld, d); cp.async in
+// 16-byte pieces then, plain element loads and stores otherwise.
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int ld,
+                                          int row0, int L, int d, bool vec) {
+  constexpr int LDS = DP + 8;
+  if (vec) {
+    constexpr int PIECES = DP / 8;
+    for (int i = threadIdx.x; i < ROWS * PIECES; i += THREADS) {
+      const int r = i / PIECES, c = (i % PIECES) * 8;
+      const int gr = row0 + r;
+      const bool in = gr < L && c < d;
+      cp_async_16(dst + r * LDS + c, in ? src + (size_t)gr * ld + c : src, in ? 16 : 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.0f);
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+      const int r = i / DP, c = i % DP;
+      const int gr = row0 + r;
+      dst[r * LDS + c] = (gr < L && c < d) ? src[(size_t)gr * ld + c] : zero;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// Calls f(integral_constant<int, DP>) with the narrowest instantiated head
+// dim DP >= d up to MAX_DP (d <= MAX_DP is the caller's check); a source
+// names the widest it needs, so that it builds no wider one.
+template <int MAX_DP, class F>
+int dispatch_head_dim(int d, F&& f) {
+  if (d <= 48) return f(std::integral_constant<int, 48>{});
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if (d <= 80) return f(std::integral_constant<int, 80>{});
+  if (d <= 160) return f(std::integral_constant<int, 160>{});
+  if constexpr (MAX_DP > 160) {
+    if (d <= 256) return f(std::integral_constant<int, 256>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 }  // namespace lmdx

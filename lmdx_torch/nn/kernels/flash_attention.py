@@ -11,8 +11,10 @@ wrappers, each with its plain PyTorch version beside it:
 
 - `flash_attention_fwd(q, k, v) -> (o, lse)` on (B, heads, L, head_dim)
 - `flash_attention_bwd(q, k, v, lse, o, do) -> (dq, dk, dv)`
-- `flash_attention_fwd_packed(q, k, v) -> (o, lse)`: the same function, the
-  heads taken in groups of `head_pack(head_dim)`
+- `flash_attention_fwd_packed(q, k, v) -> (o, lse)`: the same function from
+  the reference's start values (row max -1e30, denominator clamped at
+  1e-30); its plain version takes the heads in groups of
+  `head_pack(head_dim)` as the reference does, its kernel one head a block
 - `flash_attention_fwd_fusedheads(qf, kf, vf, heads) -> (o, lse)` on the
   projection layout (B, L, heads * head_dim), lse (B, heads, Lq)
 
@@ -22,7 +24,9 @@ them into autograd, as `jax.custom_vjp` does on the JAX side; both take their
 gradient from `flash_attention_bwd` (the fused-heads one after a head split).
 `attention_fwd_tiled_plain` repeats, step by step, the arithmetic of the
 forward body that the three forward kernels and SAM's share
-(`csrc/attention_fwd.cuh`); the CPU tests hold it against the plain versions.
+(`csrc/attention_fwd.cuh`), and `attention_bwd_tiled_plain` that of the
+backward's two kernels (`csrc/flash_bwd.cu`); the CPU tests hold them against
+the plain versions.
 
 Dispatch (the attention layers call it for their untapped attentions):
 
@@ -211,6 +215,45 @@ def attention_bwd_plain(q, k, v, lse, o, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_q_step(d: int) -> int:
+    """q rows a step of the backward's dK/dV walk at head dim d (`bwd_bq` in
+    `csrc/flash_bwd.cu`: 64 up to the padded head dim 80, 32 above)."""
+    return 64 if d <= 80 else 32
+
+
+def attention_bwd_tiled_plain(q, k, v, lse, o, do):
+    """(dq, dk, dv) by the arithmetic of the CUDA backward (`csrc/flash_bwd.cu`),
+    step by step: delta = rowsum(dO * O) in f32; scores in log2 units,
+    p = exp2(s * scale * log2(e) - lse * log2(e)) (the LSE is in natural
+    units); dS = p (dP - delta) scale in f32; p and dS rounded to the inputs'
+    dtype for the products that read them, every sum in f32; dV and dK summed
+    over q steps of `bwd_q_step(d)` rows (the dK/dV kernel's walk), dQ over
+    64-row KV tiles (the dQ kernel's walk); the outputs rounded once. q:
+    (B, h, Lq, d), k/v: (B, h, Lk, d), lse (B, h, Lq). The kernel's masks (p =
+    0 for keys >= Lk and q rows >= Lq) have no counterpart here: the tensors
+    have no such rows. The kernel is held to `attention_bwd_plain`; this one
+    shows on the CPU that its steps give the same function."""
+    lq, lk, d = q.shape[2], k.shape[2], q.shape[-1]
+    scale = d ** -0.5
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
+    delta = (gf * of).sum(-1)
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.exp2(s * (scale * _LOG2E) - (lse.float() * _LOG2E)[..., None])
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    p_r, ds_r = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, lk, _KV_TILE):
+        dq = dq + torch.matmul(ds_r[..., k0:k0 + _KV_TILE], kf[:, :, k0:k0 + _KV_TILE])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    step = bwd_q_step(d)
+    for q0 in range(0, lq, step):
+        rows = slice(q0, q0 + step)
+        dv = dv + torch.matmul(p_r[:, :, rows].transpose(-1, -2), gf[:, :, rows])
+        dk = dk + torch.matmul(ds_r[:, :, rows].transpose(-1, -2), qf[:, :, rows])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -231,7 +274,7 @@ def _fwd_lib():
 def _packed_lib():
     fn = buildlib.library("flash_fwd_packed").lmdx_flash_fwd_packed
     if fn.argtypes is None:
-        fn.argtypes = [_PTR] * 5 + [_INT] * 6 + [_PTR]
+        fn.argtypes = [_PTR] * 5 + [_INT] * 5 + [_PTR]
         fn.restype = _INT
     return fn
 
@@ -298,16 +341,16 @@ def flash_attention_fwd(q, k, v):
 
 
 def flash_attention_fwd_packed(q, k, v):
-    """(o, lse) of attention with the heads taken in groups of
-    `head_pack(head_dim)`; the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """(o, lse) of attention from the head-packed reference's start values;
+    the CUDA kernel (one head a block) for CUDA tensors, the plain version
+    (heads in groups of `head_pack(head_dim)`) for CPU tensors."""
     if q.device.type == "cpu":
         return attention_fwd_packed_plain(q, k, v)
     b, h, lq, lk, d = _check_qkv(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
     rc = _packed_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       lse.data_ptr(), b, h, head_pack(d), lq, lk, d, _stream(q))
+                       lse.data_ptr(), b, h, lq, lk, d, _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_fwd_packed launch failed: CUDA error {rc}")
     LAUNCHES["flash_attention_fwd_packed"] += 1

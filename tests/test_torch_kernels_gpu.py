@@ -135,6 +135,72 @@ def test_forward_matches_the_tiled_plain_more_closely_than_the_one_pass_plain(cu
     assert (lse - lse_ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("bh,lq,lk,d", [(16, 4096, 77, 40), (16, 64, 64, 160),
+                                        (16, 64, 94, 160)])
+def test_backward_at_short_kv_matches_plain(cuda, bh, lq, lk, d):
+    """The KV lengths the fused-heads gradient gives the backward: one or two
+    KV tiles, most of the second masked."""
+    q, k, v, do = _inputs(bh, lq, lk, d, cuda, seed=12)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    want = fa.attention_bwd_plain(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(8, 4096, 4126, 40), (16, 256, 286, 160)])
+def test_backward_is_bit_equal_from_run_to_run(cuda, bh, lq, lk, d):
+    """Each of dQ, dK, dV has one owner block and a fixed order of sums: no
+    atomics."""
+    q, k, v, do = _inputs(bh, lq, lk, d, cuda, seed=13)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    first = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    second = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("which", ["q", "kv", "o_do", "all"])
+@pytest.mark.parametrize("bh,lq,lk,d", [(4, 100, 300, 40), (2, 256, 286, 160)])
+def test_backward_takes_pointers_off_16_bytes(cuda, bh, lq, lk, d, which):
+    """Tensors that start off 16 bytes (as `.contiguous()` views may) take the
+    element-wise loads and give the same dQ, dK, dV, bit for bit."""
+    q, k, v, do = _inputs(bh, lq, lk, d, cuda, seed=14)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    if which in ("q", "all"):
+        q = _shifted(q)
+    if which in ("kv", "all"):
+        k, v = _shifted(k), _shifted(v)
+    if which in ("o_do", "all"):
+        o, do = _shifted(o), _shifted(do)
+    if which == "all":
+        lse = _shifted(lse)
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_backward_matches_the_tiled_plain_more_closely_than_the_one_pass_plain(cuda):
+    """`attention_bwd_tiled_plain` repeats the kernels' arithmetic (exp2, p and
+    dS rounded to bf16 for the products, the q steps and KV tiles), so only
+    the outputs' last rounding and the order of f32 sums differ: each output
+    within one bf16 ulp of its largest entry, and closer on average than the
+    one-pass plain version, which keeps p and dS in f32."""
+    q, k, v, do = _inputs(4, 200, 300, 40, cuda, seed=15)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    tiled = fa.attention_bwd_tiled_plain(q, k, v, lse, o, do)
+    plain = fa.attention_bwd_plain(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    for g, t, p in zip(got, tiled, plain):
+        _close(g, t, rel=2 ** -7)
+        err_t = (g.float() - t.float()).abs().mean().item()
+        err_p = (g.float() - p.float()).abs().mean().item()
+        assert err_t <= err_p, (err_t, err_p)
+
+
 def test_wrapper_counts_and_rejects(cuda):
     q, k, v, _ = _inputs(2, 64, 256, 40, cuda)
     fa.reset_launch_counts()
@@ -227,6 +293,18 @@ def test_packed_forward_matches_plain(cuda, b, h, lq, lk, d):
     _close(o, o_one)
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     assert (lse - lse_one).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [(1, 8, 4096, 4096, 40), (2, 8, 4096, 4126, 40)])
+def test_packed_forward_equals_the_per_head_kernel(cuda, b, h, lq, lk, d):
+    """One block per (q tile, head) on kernel 1's tile: the packed kernel's
+    start values (-1e30, 1e-30) never bite on finite inputs, so O and LSE are
+    kernel 1's bit for bit."""
+    q, k, v, _ = (t.reshape(b, h, -1, d) for t in _inputs(b * h, lq, lk, d, cuda, seed=16))
+    o, lse = fa.flash_attention_fwd_packed(q, k, v)
+    o_one, lse_one = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_one) and torch.equal(lse, lse_one)
 
 
 FUSED_SHAPES = [

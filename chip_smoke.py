@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`lmdx_torch/`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N] [--lmd-steps N] [--optin-steps N] [--profile PATH]
+    python3 chip_smoke.py [--steps N] [--lmd-steps N] [--optin-steps N]
+                          [--single-steps N] [--profile PATH]
 
-Five phases; any failure exits nonzero before the final line is printed.
+Six phases; any failure exits nonzero before the final line is printed.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    six), one nvcc per source, all started together, into build/kernels/, and
@@ -12,15 +13,18 @@ Five phases; any failure exits nonzero before the final line is printed.
    two) instantiated for a head dim the paths use (48, 64, 80, 160) spills.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes. Flash attention: 8 heads; (L, head_dim) =
-   (4096, 40), (1024, 80), (256, 160); at every batch and KV the two driven
+   (4096, 40), (1024, 80), (256, 160); at every batch and KV the driven
    paths give each kernel (FWD_CASES, BWD_CASES): the forward at batch 8
    (per-box passes: 4 boxes x CFG), 4 (overall passes: 2 images x CFG; LMD's
-   per-box guidance) and 2 (overall guidance), each with KV = L and L + 30
-   (the GLIGEN fuser); the backward at batch 2 (overall guidance; KV = L and
-   L + 30) and batch 4 (LMD's per-box guidance of 4 boxes; KV = L, as SD1.5
-   has no fuser). SAM attention: one 4-image chunk of SAM ViT-B, the
-   global layers (B*H = 48, N = 64 x 64, d = 64) and the windowed ones
-   (B*H = 1200, N = 14 x 14), with random f32 bias. Tolerance:
+   per-box guidance; a 2-box layout's per-box pass), 2 (overall guidance;
+   one image x CFG; LMD's per-box guidance of 2 boxes) and 1 (single-image
+   guidance), each with KV = L and L + 30 (the GLIGEN fuser); the backward
+   at batch 4 (LMD's per-box guidance of 4 boxes; KV = L, as SD1.5 has no
+   fuser), 2 (overall guidance; KV = L and L + 30) and 1 (single-image
+   guidance; KV = L and L + 30). SAM attention: one 4-image chunk and one
+   2-image chunk of SAM ViT-B, the global layers (B*H = 48 and 24, N =
+   64 x 64, d = 64) and the windowed ones (B*H = 1200 and 600, N = 14 x 14),
+   with random f32 bias. Tolerance:
    max|kernel - plain| <= 2e-2 * max|plain| for each bf16 output (the
    kernels round p and dS to bf16 for the tensor cores) and 1e-3 for the
    f32 LSE. Times: CUDA events over repeated launches queued behind a short
@@ -69,6 +73,16 @@ Five phases; any failure exits nonzero before the final line is printed.
    seeds, 512x512, 50 DDIM steps) with phase 3's checks and the launch
    counts of all five UNet kernels against what the dispatch rule, the
    schedule and the guidance iterations imply (the per-head forward: 0).
+6. Single-image methods: `lmdx_torch.methods.get_method(name).run(...)` on
+   the first layout (2 boxes), 512x512, 50 DDIM steps, random weights from
+   seed 0 at full width: `lmd_plus` and `gligen` on the SD1.4+GLIGEN bundle
+   (LMD+ with the CoarseSegmenter), then `lmd` (with SAM ViT-B), `sd` and
+   `backward_guidance` on the SD1.5 bundle; each bundle is built once for
+   its methods and freed after. Checks each image and, for LMD and LMD+, the
+   frozen mask as phases 3 and 4 do, the launches of every kernel against
+   what the dispatch, the schedule and the recorded guidance iterations
+   imply, and that every shape the flash and SAM wrappers were given is one
+   that phase 2 checked.
 
 Matmuls and convolutions run in bf16; TF32 is turned off for both
 (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32),
@@ -79,6 +93,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -203,12 +218,19 @@ def _bound(total: dict, flops: float, nbytes: float,
 
 # (batch, Lk - L) of every call the driven paths make to each flash kernel.
 # Forward: UNet batch 8 (per-box passes: 4 boxes x CFG), 4 (overall passes:
-# 2 images x CFG; LMD's per-box guidance: 4 boxes) and 2 (overall guidance),
-# each with KV = L and, in LMD+, the GLIGEN fuser's L + 30. Backward: batch 2
-# (overall guidance of both paths, fuser KV in LMD+) and 4 (LMD's per-box
-# guidance; SD1.5 has no fuser).
-FWD_CASES = [(b, extra) for b in (8, 4, 2) for extra in (0, 30)]
-BWD_CASES = [(2, 0), (2, 30), (4, 0)]
+# 2 images x CFG; LMD's per-box guidance: 4 boxes; a 2-box layout's per-box
+# pass), 2 (overall guidance; one image x CFG; LMD's per-box guidance of a
+# 2-box layout) and 1 (single-image guidance), each with KV = L and, with
+# GLIGEN, the fuser's L + 30. Backward: batch 2 (overall guidance of two
+# images, fuser KV in LMD+; LMD's per-box guidance of 2 boxes), 4 (LMD's
+# per-box guidance of 4 boxes; SD1.5 has no fuser) and 1 (single-image
+# guidance, fuser KV in LMD+).
+FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)]
+BWD_CASES = [(2, 0), (2, 30), (4, 0), (1, 0), (1, 30)]
+FLASH_LEVELS = ((4096, 40), (1024, 80), (256, 160))   # (tokens, head_dim) at 8 heads
+# (B * heads, grid side) of SAM ViT-B's attention on a chunk of 4 images
+# (the batched LMD path) and of 2 (one 2-box layout): global and windowed.
+SAM_CASES = [(4 * 12, 64), (4 * 25 * 12, 14), (2 * 12, 64), (2 * 25 * 12, 14)]
 
 
 # (Lq, Lk, head_dim) of the backward calls only the opt-in path makes.
@@ -297,7 +319,7 @@ def phase_kernels():
     heads = 8
     fwd, bwd = _totals(), _totals()
     sdpa = torch.ops.aten._scaled_dot_product_flash_attention
-    for L, d in ((4096, 40), (1024, 80), (256, 160)):
+    for L, d in FLASH_LEVELS:
         reps = 5 if L == 4096 else 20
         scale = d ** -0.5
         for b, extra in FWD_CASES:
@@ -347,10 +369,9 @@ def phase_sam_kernel():
     from lmdx_torch.nn.kernels import sam_attention as sa
 
     t = _totals()
-    heads, d = 12, 64
-    # One 4-box chunk of SAM ViT-B: the global layers and the 14x14 windows.
-    for bh, g, reps in ((4 * heads, 64, 5), (4 * 25 * heads, 14, 20)):
-        n = g * g
+    d = 64
+    for bh, g in SAM_CASES:
+        n, reps = g * g, 5 if g == 64 else 20
         gen = torch.Generator(device="cuda").manual_seed(n)
 
         def mk(last, dtype):
@@ -542,14 +563,16 @@ def phase_optin_kernels():
             "pair_stats": stats}
 
 
-def _expected_launches(cfg, num_steps, fuser_beta, guidance_iters):
+def _expected_launches(cfg, num_steps, fuser_beta, guidance_iters, passes=2):
     """Forward/backward flash launches implied by the schedule.
 
     Every self-attention and GLIGEN-fuser attention with >= 256 tokens takes
     the kernel. A full UNet forward has `full` such self-attention layers
     (and as many fuser layers while the fuser is on); the guidance forward
     exits after the last tapped block (up_1) and has `early` of each.
-    guidance_iters: [(step_index, iterations)] from the overall pass."""
+    `passes` sampling passes of `num_steps` steps each, the fuser on for the
+    first `fuser_beta` of each; guidance_iters: [(step_index, iterations)]
+    of every guided pass."""
     from lmdx_torch.sampling.guidance import default_guidance_keys
 
     ucfg = cfg.unet
@@ -574,7 +597,7 @@ def _expected_launches(cfg, num_steps, fuser_beta, guidance_iters):
     per_pass = num_steps * full + fuser_steps * full
     guid = sum(n * (early + (early if step < fuser_steps else 0))
                for step, n in guidance_iters)
-    return 2 * per_pass + guid, guid, full, early, fuser_steps
+    return passes * per_pass + guid, guid, full, early, fuser_steps
 
 
 def _profile_summary(prof, wall: float, path: str) -> None:
@@ -621,13 +644,14 @@ def _ladder_max(budgets, max_index_step, steps, per_iteration) -> int:
                for i in range(min(max_index_step, steps)))
 
 
-def _default_expect(cfg, steps, fuser_beta, ladders, expected_sam):
-    """Expected launch counts of a path on the default dispatch (options
-    off), given the guidance iterations it ran; ladders: (iteration budgets,
-    max_index_step) of each guided pass."""
+def _default_expect(cfg, steps, fuser_beta, ladders, expected_sam, passes=2):
+    """Expected launch counts of a path of `passes` sampling passes on the
+    default dispatch (options off), given the guidance iterations it ran;
+    ladders: (iteration budgets, max_index_step) of each guided pass."""
 
     def expect(iters):
-        fwd, bwd, full, early, fuser_steps = _expected_launches(cfg, steps, fuser_beta, iters)
+        fwd, bwd, full, early, fuser_steps = _expected_launches(cfg, steps, fuser_beta, iters,
+                                                                passes)
         ladder_max = sum(
             _ladder_max(budgets, max_index, steps,
                         lambda i: early * (2 if i < fuser_steps else 1))
@@ -739,7 +763,7 @@ def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
     return expect
 
 
-def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None):
+def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passes=2):
     """Drives one main path through its entry point and checks it.
 
     `run()` is called once with every launch count set to 0 just before it;
@@ -747,14 +771,14 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None):
     iterations per step, the decoded latents' finiteness and the segmenter's
     wall time are recorded (and with `profile`, a torch.profiler breakdown
     is written there). Checks the images (uint8, cfg-sized, non-constant,
-    from finite latents) and that every kernel's launches equal what
-    `expect(iterations)` says the dispatch, the schedule and the recorded
-    iterations imply (the backward also within the ladders' maximum).
-    Returns the results and the launch counts."""
+    from finite latents), that `n_passes` sampling passes ran, and that every
+    kernel's launches equal what `expect(iterations)` says the dispatch, the
+    schedule and the recorded iterations imply (the backward also within the
+    ladders' maximum). Returns the results and the launch counts."""
     import numpy as np
     import torch
 
-    from lmdx_torch.methods import base
+    from lmdx_torch.methods import _grounded, backward_guidance, base, gligen, sd
     from lmdx_torch.methods import batch as batch_lib
     from lmdx_torch.nn.kernels import flash_attention as fa
     from lmdx_torch.nn.kernels import group_norm as gn
@@ -762,6 +786,8 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None):
     from lmdx_torch.sampling import guidance as guidance_lib
 
     passes, decoded, seg_walls = [], [], []
+    # Every method module that runs the sampler, each with its own binding.
+    samplers = (batch_lib, _grounded, sd, gligen, backward_guidance)
     orig_sample = batch_lib.sample
     orig_update = guidance_lib.guidance_update_batched
     orig_loss = guidance_lib.ca_loss_batched
@@ -791,7 +817,8 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None):
         seg_walls.append(time.perf_counter() - t)
         return out
 
-    batch_lib.sample = sample
+    for module in samplers:
+        module.sample = sample
     guidance_lib.guidance_update_batched = update
     guidance_lib.ca_loss_batched = loss
     base.decode_latents = decode
@@ -817,12 +844,15 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None):
             prof.__exit__(None, None, None)
             _profile_summary(prof, wall, profile)
     finally:
-        batch_lib.sample = orig_sample
+        for module in samplers:
+            module.sample = orig_sample
         guidance_lib.guidance_update_batched = orig_update
         guidance_lib.ca_loss_batched = orig_loss
         base.decode_latents = orig_decode
         if segmenter is not None:
-            segmenter.segment_batch = orig_segment
+            # Dropping the instance attribute, not assigning the bound method
+            # back, leaves no reference cycle that would keep SAM on the card.
+            del segmenter.segment_batch
 
     for r in results:
         img = r.image
@@ -833,22 +863,21 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None):
     if not decoded or not all(decoded):
         fail(f"{label}: non-finite latents reached the VAE: {decoded}")
 
-    if len(passes) != 2:
-        fail(f"{label}: {len(passes)} sampling passes, expected 2")
+    if len(passes) != n_passes:
+        fail(f"{label}: {len(passes)} sampling passes, expected {n_passes}")
     iters = [(i, n) for pass_iters in passes for i, n in enumerate(pass_iters)]
     expected, ladder_max, note = expect(iters)
-    log(f"{label}: guidance iterations per step, per-box pass {passes[0]}, overall "
-        f"pass {passes[1]}")
+    log(f"{label}: guidance iterations per step of each pass {passes}")
     log(f"{label}: launches {launches}; expected {expected} ({note}; backward ladder "
         f"max {ladder_max})")
     for name, want in expected.items():
         if launches[name] != want:
             fail(f"{label}: {name} launches {launches[name]} != {want}")
-    if not 0 < launches["flash_attention_bwd"] <= ladder_max:
-        fail(f"{label}: backward launches {launches['flash_attention_bwd']} outside "
-             f"(0, ladder max {ladder_max}]")
+    bwd = launches["flash_attention_bwd"]
+    if not (0 < bwd <= ladder_max or bwd == ladder_max == 0):
+        fail(f"{label}: backward launches {bwd} outside (0, ladder max {ladder_max}]")
     seg = f", SAM segment wall {sum(seg_walls):.3f} s" if segmenter is not None else ""
-    log(f"{label}: {len(results)} images x 2 boxes, {cfg.height}x{cfg.width}, {steps} "
+    log(f"{label}: {len(results)} images, {cfg.height}x{cfg.width}, {steps} "
         f"DDIM steps: wall {wall:.2f} s, {len(results) / wall:.4f} images/s{seg}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return results, launches
@@ -1020,8 +1049,7 @@ def _optin_unet_check(on, off):
     f32, bf16 = torch.float32, torch.bfloat16
     checked = {
         "packed": set(PACKED_CASES), "fused": set(FUSED_CASES),
-        "bwd": set(BWD_SHORT_KV) | {(L, L + e, d) for L, d in ((4096, 40), (1024, 80),
-                                                                  (256, 160))
+        "bwd": set(BWD_SHORT_KV) | {(L, L + e, d) for L, d in FLASH_LEVELS
                                     for b, e in BWD_CASES if b == 2},
         "stats": ({(c, n, bf16, True) for c, n in STAT_CASES}
                   | {(c, n, f32, False) for c, n in STAT_BWD_CASES})}
@@ -1072,6 +1100,113 @@ def phase_optin(steps: int, profile: str | None = None):
     return launches
 
 
+@contextlib.contextmanager
+def _recording_shapes():
+    """Records the shape of every call to the flash forward and backward and
+    to SAM attention while active (the wrappers still launch and count);
+    yields the sets of shapes by wrapper."""
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import sam_attention as sa
+
+    seen = {"fwd": set(), "bwd": set(), "sam": set()}
+    originals = fwd, bwd, sam = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                                 sa.sam_attention)
+
+    def rec_fwd(q, k, v):
+        seen["fwd"].add((*q.shape[:3], k.shape[2], q.shape[3]))
+        return fwd(q, k, v)
+
+    def rec_bwd(q, k, v, *rest):
+        seen["bwd"].add((*q.shape[:3], k.shape[2], q.shape[3]))
+        return bwd(q, k, v, *rest)
+
+    def rec_sam(q, *rest):
+        seen["sam"].add((q.shape[0] * q.shape[1], q.shape[2]))
+        return sam(q, *rest)
+
+    fa.flash_attention_fwd, fa.flash_attention_bwd, sa.sam_attention = rec_fwd, rec_bwd, rec_sam
+    try:
+        yield seen
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd, sa.sam_attention = originals
+
+
+def _phase2_shapes():
+    """Every shape phase 2 holds the flash forward, the default paths'
+    backward and SAM attention to, as `_recording_shapes` records them."""
+    heads = 8
+    return {"fwd": {(b, heads, L, L + e, d) for L, d in FLASH_LEVELS for b, e in FWD_CASES},
+            "bwd": {(b, heads, L, L + e, d) for L, d in FLASH_LEVELS for b, e in BWD_CASES},
+            "sam": {(bh, g * g) for bh, g in SAM_CASES}}
+
+
+SINGLE_BUNDLES = (
+    ("gligen/diffusers-generation-text-box", ("lmd_plus", "gligen")),
+    ("runwayml/stable-diffusion-v1-5", ("lmd", "sd", "backward_guidance")),
+)
+# backward_guidance's published ladder: 5 iterations a step over 10 steps.
+BG_LADDER = ([5], 10)
+
+
+def phase_single(steps: int):
+    """The single-image methods through the registry on SPECS[0]."""
+    import torch
+
+    from lmdx_torch import methods
+    from lmdx_torch.methods._grounded import GroundedParams
+    from lmdx_torch.nn.sam import SamSegmenter
+    from lmdx_torch.runtime import models
+
+    t_phase = time.perf_counter()
+    spec = SPECS[0]
+    n_boxes = len(spec["gen_boxes"])
+    p = GroundedParams(num_inference_steps=steps)
+    all_launches = {}
+    with _recording_shapes() as seen:
+        for key, names in SINGLE_BUNDLES:
+            t0 = time.perf_counter()
+            bundle = models.load_bundle(key, seed=0, device="cuda")
+            segmenter = (SamSegmenter(models.build_sam(seed=0, device="cuda"))
+                         if "lmd" in names else None)
+            torch.cuda.synchronize()
+            log(f"single: {key} bundle{' and SAM ViT-B' if segmenter else ''} (random "
+                f"weights, seed 0) built in {time.perf_counter() - t0:.1f} s")
+            cfg = bundle.config
+            for name in names:
+                method = methods.get_method(name)
+                kw = {"num_inference_steps": steps}
+                if name == "lmd":
+                    kw["segmenter"] = segmenter
+                sam = (segmenter.config.encoder_layers * -(-n_boxes // SamSegmenter.CHUNK)
+                       if name == "lmd" else 0)
+                ladders, passes, beta = {
+                    "lmd_plus": ([(p.overall_max_iter, p.overall_max_index_step)], 2, 0.4),
+                    "lmd": ([(p.max_iter, p.max_index_step),
+                             (p.overall_max_iter, p.overall_max_index_step)], 2, 0.0),
+                    "gligen": ([], 1, 0.4),
+                    "sd": ([], 1, 0.0),
+                    "backward_guidance": ([BG_LADDER], 1, 0.0)}[name]
+                results, launches = _drive(
+                    f"single {name}", lambda: [method.run(spec, bundle, **kw)], cfg, steps,
+                    _default_expect(cfg, steps, beta, ladders, sam, passes),
+                    segmenter=segmenter if name == "lmd" else None, n_passes=passes)
+                if name in ("lmd", "lmd_plus") and results[0].aux["frozen_mask"].sum() <= 0:
+                    fail(f"single {name}: empty frozen mask")
+                all_launches[name] = launches
+            del bundle, segmenter
+            torch.cuda.empty_cache()
+    checked = _phase2_shapes()
+    for what, shapes in seen.items():
+        if not shapes or not shapes <= checked[what]:
+            fail(f"single: the {what} wrapper was given shapes phase 2 did not check: "
+                 f"{sorted(shapes - checked[what])} (seen {sorted(shapes)})")
+    log(f"single: every shape the flash and SAM wrappers were given was checked in phase 2 "
+        f"({ {k: sorted(v) for k, v in seen.items()} }); phase 6 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(launches[k] for launches in all_launches.values())
+            for k in next(iter(all_launches.values()))}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1081,6 +1216,9 @@ def main() -> None:
     ap.add_argument("--optin-steps", type=int, default=50,
                     help="DDIM steps of the opt-in LMD+ path (depth only; a rehearsal "
                          "flag: the check is the 50 steps of the default)")
+    ap.add_argument("--single-steps", type=int, default=50,
+                    help="DDIM steps of the single-image methods of phase 6 (depth only; a "
+                         "rehearsal flag: the check is the 50 steps of the default)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="trace the three paths with torch.profiler and write the device "
                          "time by kernel to PATH and to PATH with _lmd and _optin before "
@@ -1116,8 +1254,10 @@ def main() -> None:
         lmd_profile, optin_profile = f"{root}_lmd{ext}", f"{root}_optin{ext}"
     lmd = phase_lmd(args.lmd_steps, lmd_profile)
     optin = phase_optin(args.optin_steps, optin_profile)
-    launches = {name: plus[name] + lmd[name] + optin[name] for name in kernels}
-    log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}")
+    single = phase_single(args.single_steps)
+    launches = {name: plus[name] + lmd[name] + optin[name] + single[name] for name in kernels}
+    log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
+        f"single-image methods {single}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -1143,11 +1283,12 @@ def main() -> None:
     n_opt = len(OPTIN_BATCHES)
     log(f"kernel times: ms, plain_ms, bound_ms and library_ms are sums of one call "
         f"at each shape above ({3 * len(FWD_CASES)} for the flash forward, "
-        f"{3 * len(BWD_CASES)} + {len(BWD_SHORT_KV)} for the backward, 2 for SAM, "
+        f"{3 * len(BWD_CASES)} + {len(BWD_SHORT_KV)} for the backward, {len(SAM_CASES)} "
+        f"for SAM, "
         f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
         f"for the fused-heads forward, {len(STAT_CASES) * n_opt} + {len(STAT_BWD_CASES)} "
         f"for pair_stats); launches are those of the LMD+, LMD and opt-in LMD+ paths "
-        f"together")
+        f"and the single-image methods together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -1,6 +1,9 @@
 """Shared method-layer plumbing (port of the JAX package's methods/base.py):
-the result type, VAE decode, negative-prompt handling and the batched
-per-box GLIGEN inputs.
+the result type, VAE decode, negative-prompt handling, spec access and the
+GLIGEN inputs of a single image and of the batched per-box passes.
+
+Every method module exposes `version` and `run(spec, bundle, ...)`
+returning a `GenerationResult` (methods/__init__.py registers them).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 from ..nn import vae as vaelib
 from ..runtime import models as runtime_models
 from ..runtime.models import ModelBundle
+from ..sampling import gligen as gligen_lib
 
 
 @dataclass
@@ -36,6 +40,32 @@ def with_extra_negative(spec, negative_prompt: str) -> str:
     if extra:
         return f"{extra}, {negative_prompt}"
     return negative_prompt
+
+
+def spec_get(spec, key, default=None):
+    if isinstance(spec, dict):
+        return spec.get(key, default)
+    return getattr(spec, key, default)
+
+
+def make_gligen_inputs(bundle: ModelBundle, bboxes: list, phrases: list[str],
+                       batch_size: int = 1):
+    """GLIGEN grounding of one prompt for CFG sampling: at most
+    `gligen_max_objs` boxes with their phrases' pooled embeddings (none: zero
+    embeddings, every slot off). Returns (objs_full (2B, M, D),
+    objs_guidance (B, M, D)): the CFG-doubled tokens with the uncond half
+    nulled, and that nulled half for the guidance forwards."""
+    max_objs = bundle.config.unet.gligen_max_objs
+    bboxes, phrases = bboxes[:max_objs], phrases[:max_objs]
+    if phrases:
+        pooled = runtime_models.encode_text(bundle, phrases)[1].cpu().numpy()
+    else:
+        pooled = np.zeros((0, bundle.config.clip.hidden_size), np.float32)
+    boxes, embs, masks = gligen_lib.prepare_gligen_condition(
+        bboxes, pooled, max_objs=max_objs, num_images_per_prompt=batch_size,
+        cfg_double=True)
+    objs_full = runtime_models.gligen_objs(bundle, boxes, masks, embs)
+    return objs_full, objs_full[:objs_full.shape[0] // 2]
 
 
 def make_gligen_inputs_batched(bundle: ModelBundle, bboxes: list,

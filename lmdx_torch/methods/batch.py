@@ -161,7 +161,7 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
             cond_embeddings=cond if use_so_guidance else None,
             guidance_scale=p.guidance_scale,
             spec=so_spec if use_so_guidance else None, guidance_data=so_data,
-            max_iter=p.max_iter,
+            guidance_batched=True, max_iter=p.max_iter,
             gligen=gligen_inputs, num_fuser_steps=fuser_steps,
             save_all_latents=True, save_keys=save_keys,
             save_cond_only=True, save_single_token=True,
@@ -293,7 +293,7 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
     out = sample(
         bundle.unet, schedule, frozen_latents[0], torch.cat([uncond, cond], dim=0),
         cond_embeddings=cond, guidance_scale=p.guidance_scale,
-        spec=overall_spec, guidance_data=data_batched,
+        spec=overall_spec, guidance_data=data_batched, guidance_batched=True,
         max_iter=p.overall_max_iter, ref_taps=ref_batched,
         gligen=gligen_inputs,
         num_fuser_steps=(int(p.overall_gligen_scheduled_sampling_beta * schedule.num_steps)

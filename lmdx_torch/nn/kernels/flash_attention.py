@@ -30,9 +30,9 @@ the plain versions.
 
 Dispatch (the attention layers call it for their untapped attentions):
 
-- `KernelOptions()` (all off): `kernel_supported` (KV >= 256 tokens) sends a
-  layer to `flash_attention` on split heads and `flash_attention_fwd`;
-  shorter KV stays plain math.
+- `KernelOptions()` (all off): `kernel_supported` (KV >= 256 tokens, inside
+  the reference's size rule) sends a layer to `flash_attention` on split
+  heads and `flash_attention_fwd`; the rest stays plain math.
 - `packed_attention`: `flash_attention` takes `flash_attention_fwd_packed`
   in place of `flash_attention_fwd`.
 - `fused_heads`: `flash_attention_hd` takes the projections unsplit. Where
@@ -446,12 +446,25 @@ class FusedHeadsAttention(torch.autograd.Function):
         return merge_heads(dq), merge_heads(dk), merge_heads(dv), None
 
 
+_KERNEL_BUDGET = 12 * 1024 * 1024
+
+
 def kernel_supported(q, k) -> bool:
-    """The JAX dispatch gate: KV >= 256 tokens, head_dim <= 256, Lq >= 8.
-    Shorter KV (the 77-token cross-attention, the 64-token mid block) stays
-    on plain math, as on the JAX side."""
+    """The JAX dispatch gate `_kernel_supported`: KV >= 256 tokens,
+    head_dim <= 256, Lq >= 8, and the reference's size rule on KV rounded up
+    to 128 rows. Shorter KV (the 77-token cross-attention, the 64-token mid
+    block) stays on plain math, as on the JAX side. The size rule is the
+    reference's dispatch (what its backward could hold on chip, in f32), kept
+    so that the two packages send the same layers to the same kernels; it is
+    no limit of the CUDA kernels, which tile KV. Every SD1.x shape at 512x512
+    passes it (the largest is 4126 keys at head_dim 40); at 768x768 the
+    9216-key self-attention at head_dim 40 does not, and runs plain math."""
     lq, d = q.shape[-2:]
-    return d <= 256 and lq >= 8 and k.shape[2] >= 256
+    lk = k.shape[2]
+    if d > 256 or lq < 8 or lk < 256:
+        return False
+    lk_pad = -(-lk // 128) * 128
+    return (4 * 128 * lk_pad * 4 + 2 * lk_pad * d * 4 + 6 * 128 * d * 4) < _KERNEL_BUDGET
 
 
 _FUSEDHEADS_BUDGET = 11 * 1024 * 1024

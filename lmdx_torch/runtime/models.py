@@ -194,6 +194,17 @@ def encode_text(bundle: ModelBundle, texts: list[str]):
     return hidden.float(), pooled.float()
 
 
+def encode_prompts(bundle: ModelBundle, prompts: list[str], negative_prompt: str = "",
+                   one_uncond_input_only: bool = False):
+    """(uncond, cond) embeddings for CFG sampling: uncond is the embedding of
+    `negative_prompt`, repeated once per prompt unless one_uncond_input_only."""
+    cond, _ = encode_text(bundle, prompts)
+    uncond, _ = encode_text(bundle, [negative_prompt])
+    if not one_uncond_input_only:
+        uncond = uncond.repeat(len(prompts), 1, 1)
+    return uncond, cond
+
+
 @torch.no_grad()
 def gligen_objs(bundle: ModelBundle, boxes, masks, phrase_embeddings):
     """PositionNet forward: packed GLIGEN condition -> grounding tokens."""

@@ -3,14 +3,17 @@ per-step latent update loop (port of the JAX package's sampling/guidance.py).
 
 - Per-prompt structure (token positions, rasterized box masks, top-k sizes)
   is precomputed on the host into padded arrays (`make_guidance_data`), then
-  stacked along a leading image axis and moved to the device
-  (`stack_guidance_data`).
+  moved to the device as one image's data (`guidance_data_to_device`) or
+  stacked along a leading image axis (`stack_guidance_data`).
 - `ca_loss_batched` returns one loss per image; the summed loss decomposes
   per image, so one `torch.autograd.grad` gives every image's exact gradient.
 - `guidance_update_batched` is the JAX `lax.while_loop` as a Python loop:
   each image's update is gated on the loss carried into the iteration, and
   the loop runs while any image is above the threshold and the iteration
   budget lasts (the JAX side's guidance.py:397-411).
+- `ca_loss` and `guidance_update` are the single-image forms (unstacked
+  data, a scalar loss): the batched ones at one image, which the JAX side
+  states is the same function (its guidance.py:382-386).
 
 Loss semantics follow the reference's max-based foreground/background loss
 and reference-CA transfer loss, normalized over objects x attention keys.
@@ -104,12 +107,19 @@ def bucket(n: int) -> int:
 
 def make_guidance_data(bboxes, object_positions, spec: GuidanceSpec,
                        latent_hw: tuple[int, int], num_levels: int,
-                       *, max_objs: int, max_positions: int, max_ref_boxes: int,
-                       word_token_indices=None, ref_box_to_obj=None) -> dict:
+                       word_token_indices=None, ref_box_to_obj=None,
+                       max_objs: int | None = None, max_positions: int | None = None,
+                       max_ref_boxes: int | None = None) -> dict:
     """Padded host-side (numpy) guidance arrays for one image, the same
-    fields as the JAX side's make_guidance_data. The pad sizes are shared by
-    every image of a batch (stacking needs them equal)."""
+    fields as the JAX side's make_guidance_data. Images stacked into one
+    batch must share the pad sizes; None pads to the bucket of the actual
+    object and position counts and to the actual number of reference boxes,
+    as on the JAX side."""
     num_objects = len(bboxes)
+    if max_objs is None:
+        max_objs = bucket(max(num_objects, 1))
+    if max_positions is None:
+        max_positions = bucket(max((len(p) for p in object_positions), default=1))
     O = max_objs
     if num_objects > O:
         raise ValueError(f"{num_objects} objects > max_objs={O}; raise max_objs")
@@ -149,7 +159,7 @@ def make_guidance_data(bboxes, object_positions, spec: GuidanceSpec,
         if word_token_indices is None or ref_box_to_obj is None:
             raise ValueError("ref-CA needs word_token_indices and ref_box_to_obj")
         flat_boxes = [b for obj_boxes in norm_boxes for b in obj_boxes]
-        Bx = max_ref_boxes
+        Bx = max_ref_boxes if max_ref_boxes is not None else len(flat_boxes)
         if len(flat_boxes) > Bx:
             raise ValueError(f"{len(flat_boxes)} ref boxes > {Bx}")
         boxes_per_obj = np.bincount(ref_box_to_obj, minlength=num_objects)
@@ -180,6 +190,20 @@ def stack_guidance_data(datas: list, device) -> dict:
         return torch.as_tensor(np.stack(xs, axis=0), device=device)
 
     return stack(*datas)
+
+
+def guidance_data_to_device(data: dict, device) -> dict:
+    """One image's guidance dict as device tensors (no image axis), the
+    data of `ca_loss` and of `sample(..., guidance_batched=False)`."""
+    if isinstance(data, dict):
+        return {k: guidance_data_to_device(v, device) for k, v in data.items()}
+    return torch.as_tensor(np.asarray(data), device=device)
+
+
+def _with_image_axis(tree):
+    if isinstance(tree, dict):
+        return {k: _with_image_axis(v) for k, v in tree.items()}
+    return tree[None]
 
 
 def _topk_mean(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -264,3 +288,28 @@ def guidance_update_batched(unet_taps, latents: torch.Tensor, loss_in: torch.Ten
         per_prev = per.detach()
         it += 1
     return lat, per_prev
+
+
+def ca_loss(taps: dict, data: dict, spec: GuidanceSpec,
+            ref_taps: dict | None = None) -> torch.Tensor:
+    """The unscaled loss () of one image's (cond-only) guidance forward.
+
+    taps: {AttnKey: (1, heads, n, L)}; data: one image's guidance tensors
+    (`guidance_data_to_device`); ref_taps: {AttnKey: (Bx, heads, n)}
+    reference maps for this step."""
+    return ca_loss_batched(taps, _with_image_axis(data), spec,
+                           None if ref_taps is None else _with_image_axis(ref_taps))[0]
+
+
+def guidance_update(unet_taps, latents: torch.Tensor, loss_in: torch.Tensor,
+                    step_size: float, max_iter: int, data: dict,
+                    spec: GuidanceSpec, ref_taps: dict | None = None):
+    """Per-step guidance of one image: while the de-scaled loss carried into
+    an iteration is above the threshold and the budget lasts, step the
+    latents (1, H, W, C) down the gradient of the scaled loss. loss_in () is
+    the loss carried into this step; returns (latents, last loss ())."""
+    lat, loss = guidance_update_batched(
+        unet_taps, latents, loss_in[None], step_size, max_iter,
+        _with_image_axis(data), spec,
+        None if ref_taps is None else _with_image_axis(ref_taps))
+    return lat, loss[0]

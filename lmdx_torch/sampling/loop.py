@@ -1,8 +1,9 @@
 """The DDIM denoising loop (port of the JAX package's sampling/loop.py
 `sample`).
 
-One function covers plain CFG sampling, batched CA-energy guidance, GLIGEN
-scheduled sampling and frozen-mask regeneration. As on the JAX side the run
+One function covers plain CFG sampling, CA-energy guidance of one image or
+of a batch of independent images (`guidance_batched`), GLIGEN scheduled
+sampling and frozen-mask regeneration. As on the JAX side the run
 is cut into segments at the feature boundaries (guidance `max_index_step`,
 fuser steps, frozen steps) and every step of a segment runs the same
 features; here a segment is a plain Python loop over its steps. Each step:
@@ -29,7 +30,7 @@ class SampleOutput(NamedTuple):
     latents: torch.Tensor                 # (B, H, W, C) final
     all_latents: torch.Tensor | None      # (T+1, B, H, W, C) trajectory
     saved_taps: dict | None               # {AttnKey: (T, ...)} main-forward taps
-    final_loss: torch.Tensor              # (B,) last guidance loss
+    final_loss: torch.Tensor              # last guidance loss: (B,) batched, else ()
 
 
 def _segment_boundaries(num_steps: int, *cuts: int) -> list[tuple[int, int]]:
@@ -55,9 +56,9 @@ def sample(
     cond_embeddings: torch.Tensor | None = None,
     guidance_scale: float = 7.5,
     spec: guidance_lib.GuidanceSpec | None = None,
-    guidance_data: dict | None = None,     # stacked, leading image axis
+    guidance_data: dict | None = None,     # one image's, or stacked when batched
     max_iter: Any = 5,
-    ref_taps: dict | None = None,          # {key: (T, B, Bx, heads, n)}
+    ref_taps: dict | None = None,          # {key: (T, Bx, heads, n)}; batched (T, B, Bx, ...)
     gligen: tuple | None = None,           # (objs (2B, M, D), objs_guidance (B, M, D))
     num_fuser_steps: int = 0,
     frozen_mask: torch.Tensor | None = None,     # (H, W) or (B, H, W)
@@ -68,6 +69,7 @@ def sample(
     save_cond_only: bool = False,
     save_single_token: bool = False,
     tap_token_index=None,
+    guidance_batched: bool = False,        # guidance_data has a leading image axis
 ) -> SampleOutput:
     num_steps = schedule.num_steps
     has_guidance = spec is not None and guidance_data is not None
@@ -77,8 +79,10 @@ def sample(
 
     latents = latents.float()
     # The first guidance step always iterates (the reference's initial loss).
-    loss = torch.full((latents.shape[0],), 10000.0, dtype=torch.float32,
-                      device=latents.device)
+    loss = torch.full((latents.shape[0],) if guidance_batched else (), 10000.0,
+                      dtype=torch.float32, device=latents.device)
+    update = (guidance_lib.guidance_update_batched if guidance_batched
+              else guidance_lib.guidance_update)
     budgets = _max_iter_list(max_iter, num_steps)
     save_tapspec = (TapSpec(keys=tuple(save_keys), cond_only=save_cond_only,
                             single_token=save_single_token)
@@ -113,7 +117,7 @@ def sample(
 
                 ref = ({k: v[i] for k, v in ref_taps.items()}
                        if ref_taps is not None else None)
-                latents, loss = guidance_lib.guidance_update_batched(
+                latents, loss = update(
                     unet_taps, latents, loss,
                     step_size=sched.guidance_step_size(schedule, t),
                     max_iter=budgets[i], data=guidance_data, spec=spec,

@@ -254,6 +254,7 @@ def default_tokenizer():
     locations, the word-level fallback otherwise."""
     candidates = [
         os.environ.get("LMDX_TOKENIZER_DIR", ""),
+        os.path.expanduser("~/.cache/lmdx/tokenizer"),
     ]
     for path in candidates:
         if path and os.path.exists(os.path.join(path, "vocab.json")):

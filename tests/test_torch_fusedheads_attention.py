@@ -99,7 +99,8 @@ def test_gate_refuses_odd_head_dims_and_short_queries():
 
 @pytest.mark.parametrize("h,d,lq,lk,path", [
     (2, 16, 64, 77, "fusedheads"),     # inside the size rule
-    (2, 16, 16, 9000, "packed"),       # refused by the size rule, KV >= 256
+    (8, 40, 16, 4096, "packed"),       # refused by the size rule, KV >= 256
+    (2, 16, 16, 9000, "plain"),        # refused by it and by the flash gate's size rule
     (2, 12, 64, 300, "packed"),        # head_dim not a multiple of 8, KV >= 256
     (2, 12, 64, 77, "plain"),          # refused and KV < 256
 ])

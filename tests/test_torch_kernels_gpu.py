@@ -31,6 +31,12 @@ SHAPES = [
     (16, 1024, 1054, 80),
     (8, 4096, 4126, 40),
     (32, 4096, 4096, 40),   # LMD's per-box guidance: 4 boxes x 8 heads
+    # single-image guidance: batch 1 x 8 heads, KV = L and the fuser's L + 30
+    (8, 4096, 4096, 40),
+    (8, 1024, 1024, 80),
+    (8, 1024, 1054, 80),
+    (8, 256, 256, 160),
+    (8, 256, 286, 160),
     (2, 100, 300, 32),      # ragged q and kv tails
     (3, 100, 300, 20),      # head dim not a multiple of 8: element-wise loads
     (4, 8, 300, 40),        # Lq = 8: half of a warp's 16 rows
@@ -219,6 +225,8 @@ SAM_SHAPES = [
     (6, 16, 13, 32),        # non-square grid, N = 208
     (1200, 14, 14, 64),     # main path: 4 images x 25 windows x 12 heads
     (48, 64, 64, 64),       # main path: global layers, 4 images x 12 heads
+    (600, 14, 14, 64),      # one 2-box layout: 2 images x 25 windows x 12 heads
+    (24, 64, 64, 64),       # one 2-box layout: global layers, 2 images x 12 heads
     (2, 40, 6, 32),         # grid rows shorter than 8 keys, N = 240
     (2, 7, 30, 32),         # N = 210: two keys in the last tile
     (2, 4, 4, 128),         # the widest head the kernel takes, one short tile

@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (`lmdx_torch/`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--steps N] [--lmd-steps N] [--optin-steps N]
-                          [--single-steps N] [--profile PATH]
+                          [--single-steps N] [--baseline-steps N] [--profile PATH]
 
-Six phases; any failure exits nonzero before the final line is printed.
+Seven phases; any failure exits nonzero before the final line is printed.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    six), one nvcc per source, all started together, into build/kernels/, and
@@ -15,7 +15,8 @@ Six phases; any failure exits nonzero before the final line is printed.
    the main paths' shapes. Flash attention: 8 heads; (L, head_dim) =
    (4096, 40), (1024, 80), (256, 160); at every batch and KV the driven
    paths give each kernel (FWD_CASES, BWD_CASES): the forward at batch 8
-   (per-box passes: 4 boxes x CFG), 4 (overall passes: 2 images x CFG; LMD's
+   (per-box passes: 4 boxes x CFG), 6 (MultiDiffusion: 3 regions x CFG, KV =
+   L only), 4 (overall passes: 2 images x CFG; LMD's
    per-box guidance; a 2-box layout's per-box pass), 2 (overall guidance;
    one image x CFG; LMD's per-box guidance of 2 boxes) and 1 (single-image
    guidance), each with KV = L and L + 30 (the GLIGEN fuser); the backward
@@ -83,6 +84,19 @@ Six phases; any failure exits nonzero before the final line is printed.
    what the dispatch, the schedule and the recorded guidance iterations
    imply, and that every shape the flash and SAM wrappers were given is one
    that phase 2 checked.
+7. Baselines and solvers: on one SD1.5 bundle (random weights, seed 0, full
+   width, 512x512, 50 steps) and the first layout, `boxdiff` at its
+   defaults (25 guided steps, one gradient step each), `multidiffusion` at
+   its defaults (CFG 10, 20 bootstrap steps over 20 VAE-encoded
+   backgrounds, one 64x64 view, the 3 regions one UNet batch of 6), `sd`
+   and `backward_guidance` on DPM-Solver++(2M), then one DDIM `invert` of
+   `sd`'s final latents at CFG 7.5 (decoded for the image checks). Each run
+   has `_drive`'s image and launch checks (the launches as the schedule and
+   the recorded guidance iterations imply: BoxDiff's guidance forwards keep
+   the self-attentions on the flash kernels and its gradient on the
+   backward kernel, as the JAX side routes them; invert launches 49 x 15),
+   and every shape the flash wrappers were given must be one phase 2
+   checked. `--baseline-steps` cuts the depth for a rehearsal.
 
 Matmuls and convolutions run in bf16; TF32 is turned off for both
 (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32),
@@ -217,7 +231,8 @@ def _bound(total: dict, flops: float, nbytes: float,
 
 
 # (batch, Lk - L) of every call the driven paths make to each flash kernel.
-# Forward: UNet batch 8 (per-box passes: 4 boxes x CFG), 4 (overall passes:
+# Forward: UNet batch 8 (per-box passes: 4 boxes x CFG), 6 (MultiDiffusion's
+# 3 regions of a 2-box layout x CFG; SD1.5 has no fuser), 4 (overall passes:
 # 2 images x CFG; LMD's per-box guidance: 4 boxes; a 2-box layout's per-box
 # pass), 2 (overall guidance; one image x CFG; LMD's per-box guidance of a
 # 2-box layout) and 1 (single-image guidance), each with KV = L and, with
@@ -225,7 +240,7 @@ def _bound(total: dict, flops: float, nbytes: float,
 # images, fuser KV in LMD+; LMD's per-box guidance of 2 boxes), 4 (LMD's
 # per-box guidance of 4 boxes; SD1.5 has no fuser) and 1 (single-image
 # guidance, fuser KV in LMD+).
-FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)]
+FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)] + [(6, 0)]
 BWD_CASES = [(2, 0), (2, 30), (4, 0), (1, 0), (1, 30)]
 FLASH_LEVELS = ((4096, 40), (1024, 80), (256, 160))   # (tokens, head_dim) at 8 heads
 # (B * heads, grid side) of SAM ViT-B's attention on a chunk of 4 images
@@ -563,13 +578,15 @@ def phase_optin_kernels():
             "pair_stats": stats}
 
 
-def _expected_launches(cfg, num_steps, fuser_beta, guidance_iters, passes=2):
+def _expected_launches(cfg, num_steps, fuser_beta, guidance_iters, passes=2,
+                       guidance_keys=None):
     """Forward/backward flash launches implied by the schedule.
 
     Every self-attention and GLIGEN-fuser attention with >= 256 tokens takes
     the kernel. A full UNet forward has `full` such self-attention layers
     (and as many fuser layers while the fuser is on); the guidance forward
-    exits after the last tapped block (up_1) and has `early` of each.
+    exits after the last tapped block (up_1 for the default guidance keys
+    and BoxDiff's, `guidance_keys` else) and has `early` of each.
     `passes` sampling passes of `num_steps` steps each, the fuser on for the
     first `fuser_beta` of each; guidance_iters: [(step_index, iterations)]
     of every guided pass."""
@@ -579,7 +596,8 @@ def _expected_launches(cfg, num_steps, fuser_beta, guidance_iters, passes=2):
     res = cfg.latent_height  # tokens per side at level 0
     levels = len(ucfg.block_out_channels)
     full = early = 0
-    last_up = max(k[1] for k in default_guidance_keys(ucfg) if k[0] == "up")
+    keys = guidance_keys or default_guidance_keys(ucfg)
+    last_up = max(k[1] for k in keys if k[0] == "up")
     for i, kind in enumerate(ucfg.down_block_types):
         if kind == "CrossAttnDownBlock2D" and (res >> i) ** 2 >= 256:
             full += ucfg.layers_per_block
@@ -644,14 +662,15 @@ def _ladder_max(budgets, max_index_step, steps, per_iteration) -> int:
                for i in range(min(max_index_step, steps)))
 
 
-def _default_expect(cfg, steps, fuser_beta, ladders, expected_sam, passes=2):
+def _default_expect(cfg, steps, fuser_beta, ladders, expected_sam, passes=2,
+                    guidance_keys=None):
     """Expected launch counts of a path of `passes` sampling passes on the
     default dispatch (options off), given the guidance iterations it ran;
     ladders: (iteration budgets, max_index_step) of each guided pass."""
 
     def expect(iters):
         fwd, bwd, full, early, fuser_steps = _expected_launches(cfg, steps, fuser_beta, iters,
-                                                                passes)
+                                                                passes, guidance_keys)
         ladder_max = sum(
             _ladder_max(budgets, max_index, steps,
                         lambda i: early * (2 if i < fuser_steps else 1))
@@ -763,7 +782,8 @@ def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
     return expect
 
 
-def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passes=2):
+def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passes=2,
+           solver="DDIM"):
     """Drives one main path through its entry point and checks it.
 
     `run()` is called once with every launch count set to 0 just before it;
@@ -778,19 +798,21 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passe
     import numpy as np
     import torch
 
-    from lmdx_torch.methods import _grounded, backward_guidance, base, gligen, sd
+    from lmdx_torch.methods import _grounded, backward_guidance, base, boxdiff, gligen, sd
     from lmdx_torch.methods import batch as batch_lib
     from lmdx_torch.nn.kernels import flash_attention as fa
     from lmdx_torch.nn.kernels import group_norm as gn
     from lmdx_torch.nn.kernels import sam_attention as sa
+    from lmdx_torch.sampling import boxdiff as boxdiff_lib
     from lmdx_torch.sampling import guidance as guidance_lib
 
     passes, decoded, seg_walls = [], [], []
     # Every method module that runs the sampler, each with its own binding.
-    samplers = (batch_lib, _grounded, sd, gligen, backward_guidance)
+    samplers = (batch_lib, _grounded, sd, gligen, backward_guidance, boxdiff)
     orig_sample = batch_lib.sample
     orig_update = guidance_lib.guidance_update_batched
     orig_loss = guidance_lib.ca_loss_batched
+    orig_boxdiff = boxdiff_lib.boxdiff_update
     orig_decode = base.decode_latents
     orig_segment = segmenter.segment_batch if segmenter is not None else None
 
@@ -805,6 +827,10 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passe
     def loss(*a, **kw):
         passes[-1][-1] += 1
         return orig_loss(*a, **kw)
+
+    def boxdiff_update(*a, **kw):  # one gradient step: one iteration
+        passes[-1].append(1)
+        return orig_boxdiff(*a, **kw)
 
     def decode(bundle_, latents):
         decoded.append(bool(torch.isfinite(latents).all().item()))
@@ -821,6 +847,7 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passe
         module.sample = sample
     guidance_lib.guidance_update_batched = update
     guidance_lib.ca_loss_batched = loss
+    boxdiff_lib.boxdiff_update = boxdiff_update
     base.decode_latents = decode
     if segmenter is not None:
         segmenter.segment_batch = segment_batch
@@ -848,6 +875,7 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passe
             module.sample = orig_sample
         guidance_lib.guidance_update_batched = orig_update
         guidance_lib.ca_loss_batched = orig_loss
+        boxdiff_lib.boxdiff_update = orig_boxdiff
         base.decode_latents = orig_decode
         if segmenter is not None:
             # Dropping the instance attribute, not assigning the bound method
@@ -878,7 +906,7 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passe
         fail(f"{label}: backward launches {bwd} outside (0, ladder max {ladder_max}]")
     seg = f", SAM segment wall {sum(seg_walls):.3f} s" if segmenter is not None else ""
     log(f"{label}: {len(results)} images, {cfg.height}x{cfg.width}, {steps} "
-        f"DDIM steps: wall {wall:.2f} s, {len(results) / wall:.4f} images/s{seg}, peak "
+        f"{solver} steps: wall {wall:.2f} s, {len(results) / wall:.4f} images/s{seg}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return results, launches
 
@@ -1207,6 +1235,109 @@ def phase_single(steps: int):
             for k in next(iter(all_launches.values()))}
 
 
+BASELINE_BUNDLE = "runwayml/stable-diffusion-v1-5"
+BOXDIFF_LADDER = ([1], 25)   # one gradient step a step over the first 25
+
+
+def phase_baselines(steps: int):
+    """Phase 7: BoxDiff, MultiDiffusion, DPM-Solver++(2M) and DDIM inversion
+    on one SD1.5 bundle, SPECS[0]."""
+    import torch
+
+    from lmdx_torch import methods
+    from lmdx_torch.core import schedule as sched
+    from lmdx_torch.methods import base
+    from lmdx_torch.runtime import models
+    from lmdx_torch.sampling import boxdiff as boxdiff_lib
+    from lmdx_torch.sampling.loop import invert
+    from lmdx_torch.text.template import DEFAULT_OVERALL_NEGATIVE_PROMPT
+
+    t_phase = time.perf_counter()
+    spec = SPECS[0]
+    t0 = time.perf_counter()
+    bundle = models.load_bundle(BASELINE_BUNDLE, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"baselines: {BASELINE_BUNDLE} bundle (random weights, seed 0) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = bundle.config
+    boxdiff_keys = boxdiff_lib.default_boxdiff_keys(cfg.unet)
+    # (label, method, keyword arguments, guidance ladders, sampling passes,
+    # solver); MultiDiffusion runs its own loop (no `sample` pass) of one
+    # batch-6 forward a step: one pass's worth of forwards.
+    runs = [
+        ("boxdiff", "boxdiff", {}, [BOXDIFF_LADDER], 1, "DDIM"),
+        ("multidiffusion", "multidiffusion", {}, [], 0, "DDIM"),
+        ("sd (dpmpp_2m)", "sd", {"scheduler": "dpmpp_2m"}, [], 1, "DPM-Solver++(2M)"),
+        ("backward_guidance (dpmpp_2m)", "backward_guidance", {"scheduler": "dpmpp_2m"},
+         [BG_LADDER], 1, "DPM-Solver++(2M)"),
+    ]
+    all_launches, kept = {}, {}
+    orig_decode = base.decode_latents
+
+    with _recording_shapes() as seen:
+        for label, name, kw, ladders, n_passes, solver in runs:
+            method = methods.get_method(name)
+
+            def keep_latents(bundle_, latents, label=label):
+                kept[label] = latents.detach().clone()
+                return orig_decode(bundle_, latents)
+
+            base.decode_latents = keep_latents
+            try:
+                _, launches = _drive(
+                    f"baselines {label}",
+                    lambda: [method.run(spec, bundle, num_inference_steps=steps, **kw)],
+                    cfg, steps,
+                    _default_expect(cfg, steps, 0.0, ladders, 0, max(n_passes, 1),
+                                    boxdiff_keys if name == "boxdiff" else None),
+                    n_passes=n_passes, solver=solver)
+            finally:
+                base.decode_latents = orig_decode
+            all_launches[label] = launches
+
+        # One DDIM inversion of the DPM `sd` run's final latents at CFG 7.5,
+        # decoded for the image checks: 49 CFG forwards at batch 2.
+        x0 = kept["sd (dpmpp_2m)"]
+        schedule = sched.make_schedule(steps)
+        uncond, cond = models.encode_prompts(bundle, [spec["prompt"]],
+                                             DEFAULT_OVERALL_NEGATIVE_PROMPT)
+        trajectory = []
+
+        def run_invert():
+            final, traj = invert(bundle.unet, schedule, x0, torch.cat([uncond, cond], dim=0),
+                                 guidance_scale=7.5)
+            trajectory.append(traj)
+            return [base.GenerationResult(image=base.decode_latents(bundle, final)[0])]
+
+        _, launches = _drive(
+            "baselines invert", run_invert, cfg, steps - 1,
+            _default_expect(cfg, steps - 1, 0.0, [], 0, 1), n_passes=0, solver="DDIM inversion")
+        traj = trajectory[0]
+        if traj.shape != (steps, *x0.shape) or not torch.isfinite(traj).all():
+            fail(f"baselines invert: trajectory {tuple(traj.shape)}, finite "
+                 f"{bool(torch.isfinite(traj).all())}")
+        if not torch.equal(traj[0], x0.float()):
+            fail("baselines invert: the trajectory does not start at the input latents")
+        log(f"baselines invert: trajectory {tuple(traj.shape)}, std {x0.std().item():.4f} -> "
+            f"{traj[-1].std().item():.4f}")
+        all_launches["invert"] = launches
+    del bundle, kept, trajectory, x0
+    torch.cuda.empty_cache()
+
+    checked = _phase2_shapes()
+    for what in ("fwd", "bwd"):
+        if not seen[what] <= checked[what]:
+            fail(f"baselines: the {what} wrapper was given shapes phase 2 did not check: "
+                 f"{sorted(seen[what] - checked[what])} (seen {sorted(seen[what])})")
+    if not seen["fwd"] or seen["sam"]:
+        fail(f"baselines: flash forward shapes {sorted(seen['fwd'])}, SAM {sorted(seen['sam'])}")
+    log(f"baselines: every shape the flash wrappers were given was checked in phase 2 "
+        f"({ {k: sorted(v) for k, v in seen.items()} }); phase 7 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(launches[k] for launches in all_launches.values())
+            for k in next(iter(all_launches.values()))}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1219,6 +1350,10 @@ def main() -> None:
     ap.add_argument("--single-steps", type=int, default=50,
                     help="DDIM steps of the single-image methods of phase 6 (depth only; a "
                          "rehearsal flag: the check is the 50 steps of the default)")
+    ap.add_argument("--baseline-steps", type=int, default=50,
+                    help="steps of phase 7's BoxDiff, MultiDiffusion, DPM-Solver++ and "
+                         "inversion runs (depth only; a rehearsal flag: the check is the 50 "
+                         "steps of the default)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="trace the three paths with torch.profiler and write the device "
                          "time by kernel to PATH and to PATH with _lmd and _optin before "
@@ -1255,9 +1390,11 @@ def main() -> None:
     lmd = phase_lmd(args.lmd_steps, lmd_profile)
     optin = phase_optin(args.optin_steps, optin_profile)
     single = phase_single(args.single_steps)
-    launches = {name: plus[name] + lmd[name] + optin[name] + single[name] for name in kernels}
+    baselines = phase_baselines(args.baseline_steps)
+    launches = {name: plus[name] + lmd[name] + optin[name] + single[name] + baselines[name]
+                for name in kernels}
     log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
-        f"single-image methods {single}")
+        f"single-image methods {single}, baselines and solvers {baselines}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -1287,8 +1424,8 @@ def main() -> None:
         f"for SAM, "
         f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
         f"for the fused-heads forward, {len(STAT_CASES) * n_opt} + {len(STAT_BWD_CASES)} "
-        f"for pair_stats); launches are those of the LMD+, LMD and opt-in LMD+ paths "
-        f"and the single-image methods together")
+        f"for pair_stats); launches are those of the LMD+, LMD and opt-in LMD+ paths, "
+        f"the single-image methods and the baselines and solvers together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -2,14 +2,19 @@
 
 Each method module exposes `version` and `run(spec, bundle, ...)` returning a
 `base.GenerationResult` for one layout; `get_method` maps a --run-model name
-to its module ("-" and "_" alike). `batch` holds the batched LMD and LMD+
-over many layouts. BoxDiff and MultiDiffusion are not ported yet, so they
-are not in the registry.
+to its module ("-" and "_" alike). The registry holds every stage-2 method of
+the JAX one: SD, GLIGEN, Backward Guidance, BoxDiff, MultiDiffusion, LMD and
+LMD+. `batch` holds the batched LMD and LMD+ over many layouts. The SDXL
+refinement stage (`sdxl_refine` on the JAX side, on the Euler solver) is not
+ported yet.
 """
 
-from . import backward_guidance, gligen, lmd, lmd_plus, sd
+from . import backward_guidance, boxdiff, gligen, lmd, lmd_plus, multidiffusion, sd
 
-METHODS = {m.version: m for m in (sd, gligen, backward_guidance, lmd, lmd_plus)}
+METHODS = {
+    m.version: m
+    for m in (sd, gligen, backward_guidance, boxdiff, multidiffusion, lmd, lmd_plus)
+}
 
 
 def get_method(name: str):

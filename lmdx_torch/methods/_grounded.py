@@ -238,7 +238,8 @@ def run_grounded(spec, bundle, p: GroundedParams,
             gligen=gligen_inputs, num_fuser_steps=fuser_steps,
             save_all_latents=True, save_keys=save_keys,
             save_cond_only=True, save_single_token=True,
-            tap_token_index=np.asarray(word_token_indices, np.int64))
+            tap_token_index=np.asarray(word_token_indices, np.int64),
+            solver=p.scheduler)
 
         needs_pixels = return_so_images or getattr(segmenter, "needs_image", True)
         img_list = (list(base.decode_latents(bundle, out.latents)) if needs_pixels
@@ -316,7 +317,7 @@ def run_grounded(spec, bundle, p: GroundedParams,
         ref_taps=ref_taps, gligen=gligen_inputs, num_fuser_steps=fuser_steps,
         frozen_mask=dev(frozen_mask) if so_list else None,
         frozen_latents=dev(composed.latents) if so_list else None,
-        num_frozen_steps=frozen_steps if so_list else 0)
+        num_frozen_steps=frozen_steps if so_list else 0, solver=p.scheduler)
 
     images = base.decode_latents(bundle, out.latents)
     return base.GenerationResult(

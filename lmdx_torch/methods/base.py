@@ -1,6 +1,7 @@
 """Shared method-layer plumbing (port of the JAX package's methods/base.py):
-the result type, VAE decode, negative-prompt handling, spec access and the
-GLIGEN inputs of a single image and of the batched per-box passes.
+the result type, VAE decode and encode, negative-prompt handling, spec
+access and the GLIGEN inputs of a single image and of the batched per-box
+passes.
 
 Every method module exposes `version` and `run(spec, bundle, ...)`
 returning a `GenerationResult` (methods/__init__.py registers them).
@@ -31,6 +32,20 @@ def decode_latents(bundle: ModelBundle, latents: torch.Tensor) -> np.ndarray:
     """Latents (B, h, w, 4) -> uint8 images (B, H, W, 3) on the host."""
     images = bundle.vae(latents.to(bundle.device))
     return vaelib.to_uint8(images).cpu().numpy()
+
+
+@torch.no_grad()
+def _vae_encode(bundle: ModelBundle, images: torch.Tensor, noise=None) -> torch.Tensor:
+    """Images (B, H, W, 3) in [-1, 1] -> scaled latents (B, h, w, 4) on the
+    device (the posterior mean when `noise` is None)."""
+    noise = None if noise is None else torch.as_tensor(noise, device=bundle.device)
+    return bundle.vae.encode(images.to(bundle.device), noise)
+
+
+def encode_image(bundle: ModelBundle, image: np.ndarray, noise=None) -> torch.Tensor:
+    """uint8 image (H, W, 3) -> scaled latents (1, h, w, 4)."""
+    x = torch.as_tensor(np.asarray(image), dtype=torch.float32)[None] / 127.5 - 1.0
+    return _vae_encode(bundle, x, noise)
 
 
 def with_extra_negative(spec, negative_prompt: str) -> str:

@@ -165,7 +165,7 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
             gligen=gligen_inputs, num_fuser_steps=fuser_steps,
             save_all_latents=True, save_keys=save_keys,
             save_cond_only=True, save_single_token=True,
-            tap_token_index=word_token_indices)
+            tap_token_index=word_token_indices, solver=p.scheduler)
         needs_pixels = return_so_images or getattr(segmenter, "needs_image", True)
         so_images = (list(base.decode_latents(bundle, out.latents))
                      if needs_pixels else [None] * n_boxes)
@@ -299,7 +299,8 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
         num_fuser_steps=(int(p.overall_gligen_scheduled_sampling_beta * schedule.num_steps)
                          if p.use_gligen else 0),
         frozen_mask=torch.from_numpy((fg_batched != 0).astype(np.float32)).to(device),
-        frozen_latents=frozen_latents, num_frozen_steps=frozen_steps)
+        frozen_latents=frozen_latents, num_frozen_steps=frozen_steps,
+        solver=p.scheduler)
     final_images = base.decode_latents(bundle, out.latents)
 
     return [base.GenerationResult(

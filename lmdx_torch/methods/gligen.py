@@ -45,6 +45,7 @@ def run(
     out = sample(bundle.unet, schedule, torch.from_numpy(latents).to(bundle.device),
                  torch.cat([uncond, cond], dim=0), guidance_scale=guidance_scale,
                  gligen=gligen_inputs,
-                 num_fuser_steps=int(gligen_scheduled_sampling_beta * schedule.num_steps))
+                 num_fuser_steps=int(gligen_scheduled_sampling_beta * schedule.num_steps),
+                 solver=scheduler)
     images = base.decode_latents(bundle, out.latents)
     return base.GenerationResult(image=images[0])

@@ -38,6 +38,7 @@ def run(
     latents = latents_lib.noise_from_seed(bg_seed, shape) * schedule.init_noise_sigma
 
     out = sample(bundle.unet, schedule, torch.from_numpy(latents).to(bundle.device),
-                 torch.cat([uncond, cond], dim=0), guidance_scale=guidance_scale)
+                 torch.cat([uncond, cond], dim=0), guidance_scale=guidance_scale,
+                 solver=scheduler)
     images = base.decode_latents(bundle, out.latents)
     return base.GenerationResult(image=images[0])

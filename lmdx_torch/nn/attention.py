@@ -62,11 +62,19 @@ class TapSpec:
     cond_only: export only the conditional half of a CFG-doubled batch.
     single_token: export only each batch row's token column, given per call
         by `tap_token_index` (one index per exported row).
+    fused: the untapped layers that receive this spec (the cross-attentions)
+        take the kernels' route. False sends them to plain math in forward
+        and backward (`attention_plain`), skipping the fused-heads and flash
+        routes: the JAX side's `_xla_attention`, the reference's routing of
+        BoxDiff's guidance gradient (flash attention off under guidance).
+        It is a choice of route, not a fallback; the self-attentions, which
+        receive no spec, route as always.
     """
 
     keys: tuple[AttnKey, ...] = ()
     cond_only: bool = False
     single_token: bool = False
+    fused: bool = True
 
     def __bool__(self) -> bool:
         return bool(self.keys)
@@ -157,7 +165,7 @@ class CrossAttention(nn.Module):
         qf, kf, vf = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
 
         tapped = self.tap_name is not None and self.tap_name in taps.names
-        if self.options.fused_heads and not tapped:
+        if self.options.fused_heads and not tapped and taps.fused:
             # Projection layout: no head-split copies around the kernel.
             return self.to_out[0](fa.flash_attention_hd(qf, kf, vf, self.heads,
                                                         self.options))
@@ -178,7 +186,7 @@ class CrossAttention(nn.Module):
             if taps_out is not None:
                 taps_out[name_to_key(self.tap_name)] = export
             out = torch.matmul(probs.to(v.dtype), v)
-        elif fa.kernel_supported(q, k):
+        elif taps.fused and fa.kernel_supported(q, k):
             out = fa.flash_attention(q, k, v, packed=self.options.packed_attention)
         else:
             out = fa.attention_plain(q, k, v)

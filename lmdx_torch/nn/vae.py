@@ -1,6 +1,9 @@
-"""SD VAE decoder (port of the decode half of the JAX package's nn/vae.py),
-diffusers key names (decoder.*, post_quant_conv). NHWC at the interface. The
-encoder (img2img) is not ported yet.
+"""The SD VAE, AutoencoderKL (port of the JAX package's nn/vae.py): the
+encoder (images -> latent posterior; MultiDiffusion's bootstrap backgrounds,
+img2img) and the decoder (latents -> images). Diffusers key names
+(encoder.*, quant_conv, decoder.*, post_quant_conv); NHWC at the interface,
+NCHW inside. The mid blocks' single-head attention is plain math, as on the
+JAX side.
 """
 
 from __future__ import annotations
@@ -66,6 +69,59 @@ class _UpBlock(nn.Module):
         return x
 
 
+class _Downsample(nn.Module):
+    """The encoder's downsampler: an asymmetric (0, 1) pad on the right and
+    bottom, then a 3x3 stride-2 conv without padding (diffusers)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, layers: int, groups: int,
+                 downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock(in_ch if j == 0 else out_ch, out_ch, None, groups, eps=1e-6)
+            for j in range(layers)])
+        self.downsamplers = nn.ModuleList([_Downsample(out_ch)]) if downsample else None
+
+    def forward(self, x):
+        for r in self.resnets:
+            x = r(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+        return x
+
+
+class Encoder(nn.Module):
+    """Images (B, 3, H, W) -> moments (B, 2 * latent_channels, h, w)."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        ch = cfg.block_out_channels
+        g = cfg.norm_num_groups
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList([
+            _DownBlock(ch[max(i - 1, 0)], c, cfg.layers_per_block, g,
+                       downsample=i < len(ch) - 1)
+            for i, c in enumerate(ch)])
+        self.mid_block = VAEMidBlock(ch[-1], g)
+        self.conv_norm_out = GroupNorm(g, ch[-1], eps=1e-6)
+        self.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for block in self.down_blocks:
+            x = block(x)
+        x = self.mid_block(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -87,19 +143,46 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
-class VAEDecoder(nn.Module):
-    """post_quant_conv + decoder: scaled latents (B, h, w, 4) NHWC -> images
-    (B, H, W, 3) in [-1, 1]."""
+# Parameter-name prefixes of the encode half (drawn after every other
+# weight by `runtime.models.build_bundle`).
+ENCODE_HALF = ("encoder.", "quant_conv.")
+
+
+class AutoencoderKL(nn.Module):
+    """The SD VAE. `decode` (also the module's call): scaled latents
+    (B, h, w, 4) NHWC -> images (B, H, W, 3) in [-1, 1]; `encode_moments`
+    and `encode`: images (B, H, W, 3) in [-1, 1] -> latents."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.config = cfg
+        # The decode half first: its parameters lead in registration order.
         self.post_quant_conv = Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
         self.decoder = Decoder(cfg)
+        self.encoder = Encoder(cfg)
+        self.quant_conv = Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
 
-    def forward(self, latents):
+    def decode(self, latents):
         z = latents.permute(0, 3, 1, 2) / self.config.scaling_factor
         return self.decoder(self.post_quant_conv(z)).permute(0, 2, 3, 1)
+
+    def forward(self, latents):
+        return self.decode(latents)
+
+    def encode_moments(self, images):
+        """(mean, logvar) of the latent posterior, each (B, h, w, 4) in the
+        compute dtype (as the JAX side's); logvar clipped to [-30, 20]."""
+        moments = self.quant_conv(self.encoder(images.permute(0, 3, 1, 2)))
+        moments = moments.permute(0, 2, 3, 1)
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def encode(self, images, noise=None):
+        """A posterior sample (the mean when `noise` is None) times the SD
+        scaling factor."""
+        mean, logvar = self.encode_moments(images)
+        z = mean if noise is None else mean + torch.exp(0.5 * logvar) * noise
+        return z * self.config.scaling_factor
 
 
 def to_uint8(images: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ numpy leaves ({"unet", "text", "vae", "position_net"}) and returns
 - norm `scale`             -> `weight`; Embed `embedding` -> `weight`
 - GLIGEN `alpha_attn` / `alpha_dense` and PositionNet null features as they are
 
-Only the VAE's decode half is converted (the port has no encoder yet).
+The VAE is converted whole: encoder, quant_conv, decoder, post_quant_conv.
 
 `sam_from_jax_params(tree)` takes the JAX package's SAM parameter tree and
 returns the state dict with transformers `SamModel` key names that the JAX
@@ -53,6 +53,10 @@ def _segment(seg: str) -> str:
         return f"up_blocks.{m[1]}.resnets.{m[2]}"
     if m := re.fullmatch(r"up_(\d+)_upsample", seg):
         return f"up_blocks.{m[1]}.upsamplers.0.conv"
+    if m := re.fullmatch(r"down_(\d+)_resnets_(\d+)", seg):
+        return f"down_blocks.{m[1]}.resnets.{m[2]}"
+    if m := re.fullmatch(r"down_(\d+)_downsample", seg):
+        return f"down_blocks.{m[1]}.downsamplers.0.conv"
     return _SEGMENTS.get(seg, seg)
 
 
@@ -82,8 +86,8 @@ def state_dict_from_tree(tree) -> dict[str, torch.Tensor]:
 def from_jax_params(params: dict, config: SDConfig) -> dict:
     """The JAX bundle's params -> {"unet", "text", "vae", "position_net"}
     state dicts for `runtime.models.build_bundle`."""
-    vae = {"decoder": params["vae"]["decoder"],
-           "post_quant_conv": params["vae"]["post_quant_conv"]}
+    vae = {k: params["vae"][k]
+           for k in ("encoder", "quant_conv", "decoder", "post_quant_conv")}
     out = {"unet": state_dict_from_tree(params["unet"]),
            "text": state_dict_from_tree(params["text"]),
            "vae": state_dict_from_tree(vae)}

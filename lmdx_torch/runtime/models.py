@@ -28,7 +28,7 @@ from ..config import SD_CONFIGS, KernelOptions, SDConfig
 from ..nn.clip import CLIPTextEncoder
 from ..nn.sam import Sam, SamConfig, sam_vit_base
 from ..nn.unet import PositionNet, UNet2DCondition
-from ..nn.vae import VAEDecoder
+from ..nn.vae import ENCODE_HALF, AutoencoderKL
 from ..text import tokens as toklib
 
 F32_PARAM_NAME_MARKERS = ("norm",)
@@ -40,7 +40,7 @@ class ModelBundle:
     tokenizer: Any
     unet: UNet2DCondition
     text_encoder: CLIPTextEncoder
-    vae: VAEDecoder
+    vae: AutoencoderKL
     position_net: PositionNet | None
     device: torch.device
 
@@ -56,10 +56,11 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def _random_init(module: nn.Module, generator: torch.Generator) -> None:
-    """Flax-default-like init: weights ~ N(0, 1/fan_in), biases and GLIGEN
-    gates 0, norm scales 1, position embeddings N(0, 0.01^2)."""
-    for name, p in module.named_parameters():
+def _random_init(named_parameters, generator: torch.Generator) -> None:
+    """Flax-default-like init of (name, parameter) pairs, in their order:
+    weights ~ N(0, 1/fan_in), biases and GLIGEN gates 0, norm scales 1,
+    position embeddings N(0, 0.01^2)."""
+    for name, p in named_parameters:
         leaf = name.rsplit(".", 1)[-1]
         with torch.no_grad():
             if any(m in name for m in F32_PARAM_NAME_MARKERS):
@@ -94,18 +95,26 @@ def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 
         unet = UNet2DCondition(config.unet, dtype=dtype,
                                kernels=kernels or KernelOptions())
         text = CLIPTextEncoder(config.clip, dtype=dtype)
-        vae = VAEDecoder(config.vae)
+        vae = AutoencoderKL(config.vae)
         pn = (PositionNet(config.clip.hidden_size, config.unet.cross_attention_dim,
                           config.unet.gligen_fourier_freqs)
               if config.unet.use_gligen else None)
     parts = {"unet": unet, "text": text, "vae": vae, "position_net": pn}
-    generator = torch.Generator(device=device).manual_seed(seed)
+    if state_dicts is None:
+        # The VAE's encode half draws last, after PositionNet, so that every
+        # other weight is what the same seed drew before the encoder existed.
+        vae_params = list(vae.named_parameters())
+        encode_half = [(n, p) for n, p in vae_params if n.startswith(ENCODE_HALF)]
+        order = [unet.named_parameters(), text.named_parameters(),
+                 [(n, p) for n, p in vae_params if not n.startswith(ENCODE_HALF)],
+                 pn.named_parameters() if pn is not None else [], encode_half]
+        generator = torch.Generator(device=device).manual_seed(seed)
+        for named in order:
+            _random_init(named, generator)
     for key, module in parts.items():
         if module is None:
             continue
-        if state_dicts is None:
-            _random_init(module, generator)
-        else:
+        if state_dicts is not None:
             module.load_state_dict(state_dicts[key], strict=True)
         cast_for_inference(module, dtype)
         module.eval().requires_grad_(False)

@@ -1,17 +1,21 @@
-"""The DDIM denoising loop (port of the JAX package's sampling/loop.py
-`sample`).
+"""The denoising loop and DDIM inversion (port of the JAX package's
+sampling/loop.py `sample` and `invert`).
 
 One function covers plain CFG sampling, CA-energy guidance of one image or
-of a batch of independent images (`guidance_batched`), GLIGEN scheduled
-sampling and frozen-mask regeneration. As on the JAX side the run
-is cut into segments at the feature boundaries (guidance `max_index_step`,
-fuser steps, frozen steps) and every step of a segment runs the same
-features; here a segment is a plain Python loop over its steps. Each step:
-the guidance loop (autograd through the early-exit, cond-only UNet), one
-CFG-doubled UNet forward (saving taps when asked), the DDIM update, and the
-frozen-mask splice.
+of a batch of independent images (`guidance_batched`), BoxDiff's one-step
+box-constraint guidance (a `BoxDiffSpec` as `spec`), GLIGEN scheduled
+sampling and frozen-mask regeneration, on either VP-space solver: DDIM or
+DPM-Solver++(2M), whose multistep state (the previous step's x0 and t)
+carries across steps and segments. As on the JAX side the run is cut into
+segments at the feature boundaries (guidance `max_index_step`, fuser
+steps, frozen steps) and every step of a segment runs the same features;
+here a segment is a plain Python loop over its steps. Each step: the
+guidance (autograd through the early-exit, cond-only UNet), one
+CFG-doubled UNet forward (saving taps when asked), the solver update, and
+the frozen-mask splice.
 
-`invert`, DPM-Solver++, Euler and BoxDiff are not ported yet.
+`invert` runs DDIM inversion from x0 towards x_T with the reference's
+conventions. The Euler solver (the SDXL refiner's) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from ..core import schedule as sched
 from ..nn.attention import NO_TAPS, AttnKey, TapSpec
 from ..nn.unet import apply_unet
+from . import boxdiff as boxdiff_lib
 from . import guidance as guidance_lib
 
 
@@ -70,6 +75,7 @@ def sample(
     save_single_token: bool = False,
     tap_token_index=None,
     guidance_batched: bool = False,        # guidance_data has a leading image axis
+    solver: str = "ddim",                  # "ddim" | "dpmpp_2m"
 ) -> SampleOutput:
     num_steps = schedule.num_steps
     has_guidance = spec is not None and guidance_data is not None
@@ -92,6 +98,11 @@ def sample(
     if frozen_mask is not None:
         fm = frozen_mask.float()
         fm = fm[None, :, :, None] if fm.dim() == 2 else fm[:, :, :, None]
+    if solver not in ("ddim", "dpmpp_2m"):
+        raise NotImplementedError(f"solver {solver!r} is not ported yet")
+    dpm_first = sched.dpm_lower_order_mask(num_steps)
+    # DPM-Solver++'s multistep state: no history yet.
+    prev_x0, prev_tc = torch.zeros_like(latents), -1000
 
     all_latents = [latents] if save_all_latents else None
     saved_taps: list = []
@@ -115,13 +126,18 @@ def sample(
                                       objs=objs_guidance, taps=spec.tap_spec,
                                       stop_after_taps=True)[1]
 
-                ref = ({k: v[i] for k, v in ref_taps.items()}
-                       if ref_taps is not None else None)
-                latents, loss = update(
-                    unet_taps, latents, loss,
-                    step_size=sched.guidance_step_size(schedule, t),
-                    max_iter=budgets[i], data=guidance_data, spec=spec,
-                    ref_taps=ref)
+                if isinstance(spec, boxdiff_lib.BoxDiffSpec):
+                    latents, loss = boxdiff_lib.boxdiff_update(
+                        unet_taps, latents, step_index=i, num_steps=num_steps,
+                        data=guidance_data, spec=spec)
+                else:
+                    ref = ({k: v[i] for k, v in ref_taps.items()}
+                           if ref_taps is not None else None)
+                    latents, loss = update(
+                        unet_taps, latents, loss,
+                        step_size=sched.guidance_step_size(schedule, t, solver),
+                        max_iter=budgets[i], data=guidance_data, spec=spec,
+                        ref_taps=ref)
 
             with torch.no_grad():
                 eps, taps = apply_unet(
@@ -130,7 +146,13 @@ def sample(
                     tap_token_index=tap_token_index)
                 eps_uncond, eps_cond = eps.chunk(2, dim=0)
                 eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
-                latents = sched.ddim_step(schedule, eps, t, prev_t, latents)
+                if solver == "dpmpp_2m":
+                    latents, prev_x0 = sched.dpmpp_2m_step(
+                        schedule, eps, t, prev_t, latents, prev_x0, prev_tc,
+                        force_first_order=bool(dpm_first[i]))
+                    prev_tc = t
+                else:
+                    latents = sched.ddim_step(schedule, eps, t, prev_t, latents)
                 if seg_frozen:
                     latents = frozen_latents[i + 1] * fm + latents * (1.0 - fm)
 
@@ -147,3 +169,35 @@ def sample(
         latents=latents,
         all_latents=torch.stack(all_latents, dim=0) if save_all_latents else None,
         saved_taps=stacked_taps, final_loss=loss)
+
+
+def invert(unet, schedule: sched.Schedule, latents: torch.Tensor,
+           text_embeddings: torch.Tensor, guidance_scale: float = 7.5):
+    """DDIM inversion x0 -> near x_T, with the reference's conventions (as the
+    JAX package's `invert`): the ascending grid's first T - 1 entries are the
+    step targets; each step predicts eps with the TARGET t's embedding on the
+    source-level latents, the source noise level being target - train // T
+    (a sub-zero first source maps to the final alpha). CFG when
+    `guidance_scale` > 0, else one uncond-only forward. `text_embeddings`
+    (2B, L, D) [uncond; cond]. Returns the final latents (at the grid's
+    second-highest point: the reference stops one short) and the trajectory
+    (T, B, H, W, C) ascending from the input x0."""
+    ts = schedule.timesteps[::-1]                      # ascending
+    ratio = len(schedule.alphas_cumprod) // schedule.num_steps
+    latents = latents.float()
+    trajectory = [latents]
+    uncond = text_embeddings[: text_embeddings.shape[0] // 2]
+    with torch.no_grad():
+        for target in ts[:-1]:
+            target = int(target)
+            if guidance_scale > 0.0:
+                eps = apply_unet(unet, torch.cat([latents, latents], dim=0), target,
+                                 text_embeddings)[0]
+                eps_uncond, eps_cond = eps.chunk(2, dim=0)
+                eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+            else:
+                eps = apply_unet(unet, latents, target, uncond)[0]
+            latents = sched.ddim_inverse_step(schedule, eps, target - ratio, target,
+                                              latents)
+            trajectory.append(latents)
+    return latents, torch.stack(trajectory, dim=0)

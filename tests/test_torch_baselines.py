@@ -1,6 +1,7 @@
 """The port's baselines (`methods.sd`, `methods.gligen`,
 `methods.backward_guidance`) against the JAX package's on the tiny-test
-config, and the port's method registry against the JAX one.
+config, and the port's method registry against the JAX one (BoxDiff and
+MultiDiffusion have their own files).
 
 Both sides run the same weights (the JAX side's tiny-test parameters
 converted for the port, `tests/_torch_tiny.py`) and the same noise (the JAX side with LMDX_NOISE_BACKEND=torch draws the port's torch
@@ -90,8 +91,10 @@ def test_gligen_grounding_reaches_the_latents(monkeypatch, bundles):
 
 
 def test_scheduler_other_than_ddim_is_refused(bundles):
+    # DPM-Solver++(2M) is ported (tests/test_torch_dpm_invert.py); Euler, the
+    # SDXL refiner's sigma-space solver, is the one still refused.
     with pytest.raises(NotImplementedError):
-        tmethods.get_method("sd").run(SPECS[0], bundles[1], scheduler="dpmpp_2m")
+        tmethods.get_method("sd").run(SPECS[0], bundles[1], scheduler="euler")
 
 
 @pytest.mark.parametrize("name,version", [("lmd-plus", "lmd_plus"), ("lmd_plus", "lmd_plus"),
@@ -107,7 +110,7 @@ def test_get_method_refuses_an_unknown_name():
         tmethods.get_method("dalle")
 
 
-def test_registry_is_the_jax_registry_without_the_unported_methods():
-    assert set(tmethods.METHODS) == set(jmethods.METHODS) - {"boxdiff", "multidiffusion"}
+def test_registry_is_the_jax_registry():
+    assert set(tmethods.METHODS) == set(jmethods.METHODS)
     for name, module in tmethods.METHODS.items():
         assert module.version == name

@@ -2,9 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (`lmdx_torch/`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--steps N] [--lmd-steps N] [--optin-steps N]
-                          [--single-steps N] [--baseline-steps N] [--profile PATH]
+                          [--single-steps N] [--baseline-steps N] [--ckpt-steps N]
+                          [--profile PATH]
 
-Seven phases; any failure exits nonzero before the final line is printed.
+Eight phases; any failure exits nonzero before the final line is printed.
+Phases 3-7 run on random weights (LMDX_CHECKPOINT_DIR is unset for them);
+phase 8 loads checkpoints from disk.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    six), one nvcc per source, all started together, into build/kernels/, and
@@ -97,6 +100,23 @@ Seven phases; any failure exits nonzero before the final line is printed.
    backward kernel, as the JAX side routes them; invert launches 49 x 15),
    and every shape the flash wrappers were given must be one phase 2
    checked. `--baseline-steps` cuts the depth for a rehearsal.
+8. Checkpoint path: fabricates `gligen/diffusers-generation-text-box` and
+   `runwayml/stable-diffusion-v1-5` (diffusers layout) and
+   `facebook--sam-vit-base` in fp16 at the published key names and shapes
+   (`lmdx_torch.runtime.fabricate`, 2.43B values, ~4.9 GB) into a temporary
+   directory, removed at the end; checks that `validate_checkpoint` is clean
+   for both, that `load_bundle` refuses the checkpoint without a tokenizer
+   (and loads it with LMDX_ALLOW_WORD_TOKENIZER=1, set for this phase only)
+   and refuses dtype float32 on the card at load time; takes the template's
+   in-context response for STAGE1_CAPTION through the port's parser and a
+   LayoutCache file into a spec; then loads each bundle (and, for LMD, SAM
+   through `load_segmenter`) on the card, printing the load wall, GB/s of
+   file and peak memory, checks every loaded parameter bit for bit against
+   the file's tensor cast to its dtype, and renders `lmd_plus` on the
+   SD1.4+GLIGEN bundle and `lmd` with SAM on the SD1.5 bundle at 512x512,
+   `--ckpt-steps` DDIM steps, with phase 6's checks (images, masks, launches,
+   every wrapper shape one phase 2 checked). Each bundle is freed before the
+   next.
 
 Matmuls and convolutions run in bf16; TF32 is turned off for both
 (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32),
@@ -1176,19 +1196,53 @@ SINGLE_BUNDLES = (
 BG_LADDER = ([5], 10)
 
 
+def _run_single(label, name, spec, bundle, segmenter, steps):
+    """`get_method(name).run(spec, bundle)` through `_drive`, with the launches
+    its dispatch, schedule and recorded guidance iterations imply; for `lmd`
+    and `lmd_plus` also a non-empty frozen mask, and for `lmd` a SAM mask
+    per box, not all of them empty (phase 4's check)."""
+    from lmdx_torch import methods
+    from lmdx_torch.methods._grounded import GroundedParams
+    from lmdx_torch.nn.sam import SamSegmenter
+
+    cfg = bundle.config
+    p = GroundedParams(num_inference_steps=steps)
+    kw = {"num_inference_steps": steps}
+    if name == "lmd":
+        kw["segmenter"] = segmenter
+    sam = (segmenter.config.encoder_layers * -(-len(spec["gen_boxes"]) // SamSegmenter.CHUNK)
+           if name == "lmd" else 0)
+    ladders, passes, beta = {
+        "lmd_plus": ([(p.overall_max_iter, p.overall_max_index_step)], 2, 0.4),
+        "lmd": ([(p.max_iter, p.max_index_step),
+                 (p.overall_max_iter, p.overall_max_index_step)], 2, 0.0),
+        "gligen": ([], 1, 0.4),
+        "sd": ([], 1, 0.0),
+        "backward_guidance": ([BG_LADDER], 1, 0.0)}[name]
+    method = methods.get_method(name)
+    results, launches = _drive(
+        label, lambda: [method.run(spec, bundle, **kw)], cfg, steps,
+        _default_expect(cfg, steps, beta, ladders, sam, passes),
+        segmenter=segmenter if name == "lmd" else None, n_passes=passes)
+    if name in ("lmd", "lmd_plus") and results[0].aux["frozen_mask"].sum() <= 0:
+        fail(f"{label}: empty frozen mask")
+    if name == "lmd":
+        areas = [int(m.sum()) for m in results[0].aux["masks"]]
+        log(f"{label}: per-box mask areas (of {cfg.latent_height * cfg.latent_width}) {areas}")
+        if len(areas) != len(spec["gen_boxes"]) or not any(areas):
+            fail(f"{label}: per-box masks {areas}: missing or all empty")
+    return results, launches
+
+
 def phase_single(steps: int):
     """The single-image methods through the registry on SPECS[0]."""
     import torch
 
-    from lmdx_torch import methods
-    from lmdx_torch.methods._grounded import GroundedParams
     from lmdx_torch.nn.sam import SamSegmenter
     from lmdx_torch.runtime import models
 
     t_phase = time.perf_counter()
     spec = SPECS[0]
-    n_boxes = len(spec["gen_boxes"])
-    p = GroundedParams(num_inference_steps=steps)
     all_launches = {}
     with _recording_shapes() as seen:
         for key, names in SINGLE_BUNDLES:
@@ -1199,40 +1253,31 @@ def phase_single(steps: int):
             torch.cuda.synchronize()
             log(f"single: {key} bundle{' and SAM ViT-B' if segmenter else ''} (random "
                 f"weights, seed 0) built in {time.perf_counter() - t0:.1f} s")
-            cfg = bundle.config
             for name in names:
-                method = methods.get_method(name)
-                kw = {"num_inference_steps": steps}
-                if name == "lmd":
-                    kw["segmenter"] = segmenter
-                sam = (segmenter.config.encoder_layers * -(-n_boxes // SamSegmenter.CHUNK)
-                       if name == "lmd" else 0)
-                ladders, passes, beta = {
-                    "lmd_plus": ([(p.overall_max_iter, p.overall_max_index_step)], 2, 0.4),
-                    "lmd": ([(p.max_iter, p.max_index_step),
-                             (p.overall_max_iter, p.overall_max_index_step)], 2, 0.0),
-                    "gligen": ([], 1, 0.4),
-                    "sd": ([], 1, 0.0),
-                    "backward_guidance": ([BG_LADDER], 1, 0.0)}[name]
-                results, launches = _drive(
-                    f"single {name}", lambda: [method.run(spec, bundle, **kw)], cfg, steps,
-                    _default_expect(cfg, steps, beta, ladders, sam, passes),
-                    segmenter=segmenter if name == "lmd" else None, n_passes=passes)
-                if name in ("lmd", "lmd_plus") and results[0].aux["frozen_mask"].sum() <= 0:
-                    fail(f"single {name}: empty frozen mask")
-                all_launches[name] = launches
+                _, all_launches[name] = _run_single(f"single {name}", name, spec, bundle,
+                                                    segmenter, steps)
             del bundle, segmenter
             torch.cuda.empty_cache()
+    _require_checked_shapes("single", seen)
+    log(f"single: phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return _sum_launches(all_launches)
+
+
+def _require_checked_shapes(label, seen):
+    """Fails unless each wrapper was given shapes, all of them ones phase 2
+    checked."""
     checked = _phase2_shapes()
     for what, shapes in seen.items():
         if not shapes or not shapes <= checked[what]:
-            fail(f"single: the {what} wrapper was given shapes phase 2 did not check: "
+            fail(f"{label}: the {what} wrapper was given shapes phase 2 did not check: "
                  f"{sorted(shapes - checked[what])} (seen {sorted(shapes)})")
-    log(f"single: every shape the flash and SAM wrappers were given was checked in phase 2 "
-        f"({ {k: sorted(v) for k, v in seen.items()} }); phase 6 took "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    return {k: sum(launches[k] for launches in all_launches.values())
-            for k in next(iter(all_launches.values()))}
+    log(f"{label}: every shape the flash and SAM wrappers were given was checked in phase 2 "
+        f"({ {k: sorted(v) for k, v in seen.items()} })")
+
+
+def _sum_launches(by_run: dict) -> dict:
+    return {k: sum(launches[k] for launches in by_run.values())
+            for k in next(iter(by_run.values()))}
 
 
 BASELINE_BUNDLE = "runwayml/stable-diffusion-v1-5"
@@ -1334,8 +1379,160 @@ def phase_baselines(steps: int):
     log(f"baselines: every shape the flash wrappers were given was checked in phase 2 "
         f"({ {k: sorted(v) for k, v in seen.items()} }); phase 7 took "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return {k: sum(launches[k] for launches in all_launches.values())
-            for k in next(iter(all_launches.values()))}
+    return _sum_launches(all_launches)
+
+
+CKPT_MODELS = (("gligen/diffusers-generation-text-box", "lmd_plus"),
+               ("runwayml/stable-diffusion-v1-5", "lmd"))
+# The caption of the template's fourth in-context example (2 boxes); its
+# response is the stage-1 layout phase 8 renders.
+STAGE1_CAPTION = "A watercolor of a sleepy cat and a playful puppy without people"
+
+
+def _stage_one_spec(root: str) -> dict:
+    """One stage-1 layout through the port's host side: the template's
+    in-context response for STAGE1_CAPTION, parsed and filtered, written to
+    a LayoutCache file under `root`, read back by a second cache, parsed and
+    filtered again into the spec a method runs, as the JAX CLI builds it."""
+    from lmdx_torch.text import parser, template
+    from lmdx_torch.text.cache import LayoutCache, cache_filename
+
+    block = template.TEMPLATE_V0_1.split(f"Caption: {STAGE1_CAPTION}\n", 1)[1]
+    response = block.split("\n\n", 1)[0]
+    layout = parser.parse_layout_response(response)
+    if len(parser.filter_boxes(layout.gen_boxes)) != 2:
+        fail(f"stage 1: the template's response gave {layout.gen_boxes}")
+    path = cache_filename("demo", "v0.1", "gpt-4", os.path.join(root, "cache"))
+    LayoutCache(path).add(STAGE1_CAPTION, response)
+    cached = LayoutCache(path, allow_nonexist=False).get(STAGE1_CAPTION)
+    if cached != response:
+        fail(f"stage 1: the layout cache gave back {cached!r}")
+    layout = parser.parse_layout_response(cached)
+    spec = {"prompt": STAGE1_CAPTION, "gen_boxes": parser.filter_boxes(layout.gen_boxes),
+            "bg_prompt": layout.bg_prompt, "extra_neg_prompt": layout.neg_prompt}
+    log(f"checkpoint: stage 1 through the parser and {os.path.basename(path)}: {spec}")
+    return spec
+
+
+def _check_loaded(label, modules: dict, state_dicts: dict, f32_markers) -> int:
+    """Every parameter of `modules` equals the file's tensor cast to the
+    parameter's dtype, bit for bit, compared on the card; norm (and SAM's
+    f32) parameters are f32, the rest bf16. Returns the values compared."""
+    import torch
+
+    n = 0
+    for part, module in modules.items():
+        params = dict(module.named_parameters())
+        if sorted(params) != sorted(state_dicts[part]):
+            fail(f"{label}: {part} parameters and the file's tensors differ in name")
+        for name, p in params.items():
+            want_dtype = (torch.float32 if any(m in name for m in f32_markers)
+                          else torch.bfloat16)
+            if p.dtype != want_dtype or p.device.type != "cuda":
+                fail(f"{label}: {part}.{name} is {p.dtype} on {p.device}")
+            if not torch.equal(p, state_dicts[part][name].to(p.device).to(p.dtype)):
+                fail(f"{label}: {part}.{name} differs from the file's tensor")
+            n += p.numel()
+    return n
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_checkpoint(steps: int):
+    """Phase 8: fabricated checkpoints at production shapes, loaded from disk
+    by the port's loader, rendered from a layout that went through stage 1."""
+    import tempfile
+
+    import torch
+
+    from lmdx_torch.runtime import convert, fabricate, models
+
+    t_phase = time.perf_counter()
+    saved = os.environ.pop("LMDX_ALLOW_WORD_TOKENIZER", None)
+    all_launches = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="lmdx_checkpoints_") as root:
+            t0 = time.perf_counter()
+            params = {key: fabricate.fabricate_model(key, root, torch.float16)
+                      for key, _ in CKPT_MODELS}
+            params["sam"] = fabricate.fabricate_sam(root, torch.float16)
+            dirs = {key: os.path.join(root, key.replace("/", "--")) for key, _ in CKPT_MODELS}
+            dirs["sam"] = os.path.join(root, fabricate.SAM_KEY.replace("/", "--"))
+            sizes = {k: _dir_bytes(d) for k, d in dirs.items()}
+            log(f"checkpoint: fabricated {sum(params.values()) / 1e9:.3f}B params in fp16 "
+                f"({sum(sizes.values()) / 1e9:.3f} GB: " + ", ".join(
+                    f"{k} {params[k] / 1e9:.3f}B, {sizes[k] / 1e9:.3f} GB" for k in dirs)
+                + f") in {time.perf_counter() - t0:.1f} s")
+
+            for key, _ in CKPT_MODELS:
+                report = convert.validate_checkpoint(key, dirs[key])
+                if any(v for r in report.values() for v in r.values()):
+                    fail(f"checkpoint: {key} does not match its manifests: {report}")
+            log("checkpoint: validate_checkpoint clean for " + ", ".join(dirs))
+
+            key = CKPT_MODELS[0][0]
+            refusals = []
+            for kw, needle in (({}, "WordTokenizer"), ({"dtype": "float32"},
+                                                         "float32 instantiations")):
+                try:
+                    models.load_bundle(key, dirs[key], device="cuda", **kw)
+                except ValueError as exc:
+                    if needle not in str(exc):
+                        fail(f"checkpoint: load_bundle{kw} refused with {exc}")
+                    refusals.append(str(exc).split(";")[0][:90])
+                else:
+                    fail(f"checkpoint: load_bundle{kw} of a checkpoint without a tokenizer "
+                         f"was not refused")
+            log(f"checkpoint: refused as expected: {refusals}")
+            os.environ["LMDX_ALLOW_WORD_TOKENIZER"] = "1"
+
+            spec = _stage_one_spec(root)
+            with _recording_shapes() as seen:
+                for key, name in CKPT_MODELS:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    bundle = models.load_bundle(key, dirs[key], device="cuda")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    log(f"checkpoint: {key} loaded from {sizes[key] / 1e9:.3f} GB in "
+                        f"{wall:.2f} s ({sizes[key] / 1e9 / wall:.2f} GB/s of file), peak "
+                        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                    modules = {"unet": bundle.unet, "text": bundle.text_encoder,
+                               "vae": bundle.vae}
+                    if bundle.position_net is not None:
+                        modules["position_net"] = bundle.position_net
+                    n = _check_loaded(f"checkpoint {key}", modules,
+                                      convert.load_checkpoint(bundle.config, dirs[key]),
+                                      models.F32_PARAM_NAME_MARKERS)
+                    segmenter = None
+                    if name == "lmd":
+                        t0 = time.perf_counter()
+                        segmenter = models.load_segmenter(dirs["sam"], device="cuda")
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                        log(f"checkpoint: SAM ViT-B loaded from {sizes['sam'] / 1e9:.3f} GB "
+                            f"in {wall:.2f} s ({sizes['sam'] / 1e9 / wall:.2f} GB/s)")
+                        n += _check_loaded("checkpoint sam", {"sam": segmenter.model},
+                                           {"sam": convert.load_sam_state_dict(dirs["sam"])},
+                                           models.SAM_F32_MARKERS)
+                    log(f"checkpoint: {n / 1e9:.3f}B loaded values equal the files' tensors "
+                        f"bit for bit")
+                    _, all_launches[name] = _run_single(f"checkpoint {name}", name, spec,
+                                                        bundle, segmenter, steps)
+                    del bundle, segmenter, modules
+    finally:
+        if saved is None:
+            os.environ.pop("LMDX_ALLOW_WORD_TOKENIZER", None)
+        else:
+            os.environ["LMDX_ALLOW_WORD_TOKENIZER"] = saved
+    torch.cuda.empty_cache()
+    _require_checked_shapes("checkpoint", seen)
+    log(f"checkpoint: phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return _sum_launches(all_launches)
 
 
 def main() -> None:
@@ -1354,6 +1551,10 @@ def main() -> None:
                     help="steps of phase 7's BoxDiff, MultiDiffusion, DPM-Solver++ and "
                          "inversion runs (depth only; a rehearsal flag: the check is the 50 "
                          "steps of the default)")
+    ap.add_argument("--ckpt-steps", type=int, default=50,
+                    help="DDIM steps of phase 8's LMD+ and LMD renders on the loaded "
+                         "checkpoints (depth only; a rehearsal flag: the check is the 50 "
+                         "steps of the default)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="trace the three paths with torch.profiler and write the device "
                          "time by kernel to PATH and to PATH with _lmd and _optin before "
@@ -1369,6 +1570,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     sys.path.insert(0, HERE)
+    # Phases 3-7 run on random weights; phase 8 names its checkpoints itself.
+    if os.environ.pop("LMDX_CHECKPOINT_DIR", None) is not None:
+        log("LMDX_CHECKPOINT_DIR unset: phases 3-7 run on random weights")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1391,10 +1595,12 @@ def main() -> None:
     optin = phase_optin(args.optin_steps, optin_profile)
     single = phase_single(args.single_steps)
     baselines = phase_baselines(args.baseline_steps)
+    checkpoint = phase_checkpoint(args.ckpt_steps)
     launches = {name: plus[name] + lmd[name] + optin[name] + single[name] + baselines[name]
-                for name in kernels}
+                + checkpoint[name] for name in kernels}
     log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
-        f"single-image methods {single}, baselines and solvers {baselines}")
+        f"single-image methods {single}, baselines and solvers {baselines}, "
+        f"checkpoint path {checkpoint}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -1425,7 +1631,8 @@ def main() -> None:
         f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
         f"for the fused-heads forward, {len(STAT_CASES) * n_opt} + {len(STAT_BWD_CASES)} "
         f"for pair_stats); launches are those of the LMD+, LMD and opt-in LMD+ paths, "
-        f"the single-image methods and the baselines and solvers together")
+        f"the single-image methods, the baselines and solvers and the checkpoint path "
+        f"together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

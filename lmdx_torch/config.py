@@ -90,6 +90,8 @@ class SDConfig:
     key: str = "gligen/diffusers-generation-text-box"
     unet: UNetConfig = field(default_factory=UNetConfig)
     clip: CLIPTextConfig = field(default_factory=CLIPTextConfig)
+    # Checkpoint subdirectory holding the text tower's weights.
+    text_encoder_dir: str = "text_encoder"
     vae: VAEConfig = field(default_factory=VAEConfig)
     height: int = 512
     width: int = 512

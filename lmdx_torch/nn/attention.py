@@ -97,6 +97,16 @@ class Conv2d(nn.Conv2d):
         return super().forward(x.to(self.weight.dtype))
 
 
+class Embedding(nn.Embedding):
+    """nn.Embedding without its N(0, 1) draw at construction: a bundle's
+    weights are drawn by `runtime.models` or loaded from a checkpoint into
+    modules built on the `meta` device, where `normal_`'s first call in a
+    process imports torch's Python meta kernels, which takes seconds."""
+
+    def reset_parameters(self) -> None:
+        pass
+
+
 class LayerNorm(nn.LayerNorm):
     """f32 statistics and parameters; output in `out_dtype`."""
 

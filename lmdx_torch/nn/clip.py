@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import CLIPTextConfig
-from .attention import LayerNorm, Linear
+from .attention import Embedding, LayerNorm, Linear
 
 
 def _act(name: str, x):
@@ -72,8 +72,8 @@ class CLIPLayer(nn.Module):
 class _Embeddings(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
-        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position_embedding = nn.Embedding(cfg.max_length, cfg.hidden_size)
+        self.token_embedding = Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = Embedding(cfg.max_length, cfg.hidden_size)
 
 
 class _Encoder(nn.Module):

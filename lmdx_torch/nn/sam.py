@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import boxes as boxlib
-from .attention import Conv2d, LayerNorm, Linear
+from .attention import Conv2d, Embedding, LayerNorm, Linear
 from .kernels import sam_attention as sam_kernel
 
 
@@ -216,9 +216,9 @@ class SamPromptEncoder(nn.Module):
         dim = config.out_dim
         self.grid = config.grid
         self.shared_embedding = _PositionalEmbedding(dim)
-        self.point_embed = nn.ModuleList([nn.Embedding(1, dim) for _ in range(4)])
-        self.not_a_point_embed = nn.Embedding(1, dim)
-        self.no_mask_embed = nn.Embedding(1, dim)
+        self.point_embed = nn.ModuleList([Embedding(1, dim) for _ in range(4)])
+        self.not_a_point_embed = Embedding(1, dim)
+        self.no_mask_embed = Embedding(1, dim)
 
     def _pe(self, coords):  # coords in [0, 1], (..., 2)
         x = (2.0 * coords - 1.0) @ self.shared_embedding.positional_embedding
@@ -349,8 +349,8 @@ class SamMaskDecoder(nn.Module):
         super().__init__()
         dim = config.out_dim
         tokens = config.num_multimask + 1
-        self.iou_token = nn.Embedding(1, dim)
-        self.mask_tokens = nn.Embedding(tokens, dim)
+        self.iou_token = Embedding(1, dim)
+        self.mask_tokens = Embedding(tokens, dim)
         self.transformer = _TwoWayTransformer(config, dtype)
         self.upscale_conv1 = MirroredConvTranspose2d(dim, dim // 4, 2, stride=2)
         self.upscale_layer_norm = LayerNorm(dim // 4, 1e-6, torch.float32)

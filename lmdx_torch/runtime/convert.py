@@ -15,16 +15,28 @@ The VAE is converted whole: encoder, quant_conv, decoder, post_quant_conv.
 `sam_from_jax_params(tree)` takes the JAX package's SAM parameter tree and
 returns the state dict with transformers `SamModel` key names that the JAX
 side's `convert_sam` maps onto that tree: its exact inverse.
+
+Checkpoint directories (diffusers / transformers layout, `<dir>/unet`,
+`<dir>/text_encoder`, `<dir>/vae`; SAM in one directory):
+`load_checkpoint(config, dir)` reads them into state dicts named as the
+port's modules name their parameters, in the file's dtype and still on the
+host (a safetensors file is mapped, not copied: `safetensors_io`);
+`load_sam_state_dict(dir)` does the same for SAM; `validate_checkpoint`
+diffs a directory against the manifests in `manifests/` (key names and
+shapes of the published checkpoints), with the JAX side's report.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 
 import numpy as np
 import torch
 
 from ..config import SDConfig
+from . import safetensors_io
 
 _INDEXED = re.compile(r"(down_blocks|up_blocks|resnets|attentions|linears)_(\d+)")
 _SEGMENTS = {
@@ -180,3 +192,142 @@ def sam_from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
             lin(f"{p}.mlp.lin1", block["mlp_lin1"])
             lin(f"{p}.mlp.lin2", block["mlp_lin2"])
     return sd
+
+
+# ---- checkpoint directories -------------------------------------------------
+
+# Weight file names a component directory may hold, in the order probed.
+_WEIGHT_FILES = ("diffusion_pytorch_model.safetensors", "model.safetensors",
+                "diffusion_pytorch_model.bin", "pytorch_model.bin",
+                "pytorch_model.safetensors")
+
+
+def _load_state_dict(component_dir: str) -> dict[str, torch.Tensor]:
+    """The first weight file of _WEIGHT_FILES in `component_dir`, as host
+    tensors in the file's dtype (mapped, not read, where the format allows)."""
+    for name in _WEIGHT_FILES:
+        path = os.path.join(component_dir, name)
+        if not os.path.exists(path):
+            continue
+        if name.endswith(".safetensors"):
+            return safetensors_io.read(path)
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    raise FileNotFoundError(f"no weight file in {component_dir}")
+
+
+MANIFEST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "manifests")
+
+# checkpoint component -> manifest file, per SD model key.
+_COMPONENT_MANIFESTS = {
+    "runwayml/stable-diffusion-v1-5": {
+        "unet": "unet_sd15", "text_encoder": "text_encoder_clip_vit_l",
+        "vae": "vae_sd"},
+    "gligen/diffusers-generation-text-box": {
+        "unet": "unet_gligen", "text_encoder": "text_encoder_clip_vit_l",
+        "vae": "vae_sd"},
+}
+SAM_MANIFEST = "sam_vit_base"
+
+# Keys that may differ from the manifest: buffers some transformers versions
+# persist, and the VAE attention's two naming eras (the manifest holds the
+# legacy names, the port's modules the modern ones).
+_IGNORABLE_SUBSTRINGS = ("position_ids",)
+_VAE_ERA_RENAMES = {"to_q": "query", "to_k": "key", "to_v": "value",
+                    "to_out.0": "proj_attn"}
+_VAE_LEGACY = re.compile(r"(.*\.attentions\.0\.)(query|key|value|proj_attn)(\.\w+)")
+# SamModel parameters no path of the port reads (the JAX side's convert_sam
+# skips them too): the mask-prompt encoder and the top-level copy of the
+# prompt encoder's shared positional embedding.
+SAM_UNUSED_PREFIXES = ("prompt_encoder.mask_embed.", "shared_image_embedding.")
+
+
+def load_manifest(name: str) -> dict[str, list[int]]:
+    with open(os.path.join(MANIFEST_DIR, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def _ignorable(key: str) -> bool:
+    return any(s in key for s in _IGNORABLE_SUBSTRINGS)
+
+
+def validate_checkpoint(model_key: str, checkpoint_dir: str) -> dict:
+    """Diff a checkpoint directory against the manifests.
+
+    Returns {component: {"missing": [...], "extra": [...], "shape": [...]}}
+    with empty lists on a clean match. The VAE check accepts both attention
+    naming eras and legacy (C, C, 1, 1) attention weights."""
+    manifests = _COMPONENT_MANIFESTS.get(model_key)
+    if manifests is None:
+        raise KeyError(f"no manifests for model key {model_key!r}; known: "
+                       f"{sorted(_COMPONENT_MANIFESTS)}")
+    report = {}
+    for component, manifest_name in manifests.items():
+        manifest = load_manifest(manifest_name)
+        actual = {}
+        for k, v in _load_state_dict(os.path.join(checkpoint_dir, component)).items():
+            if _ignorable(k):
+                continue
+            shape = list(v.shape)
+            if component == "vae":
+                for new, old in _VAE_ERA_RENAMES.items():
+                    marker = f".attentions.0.{new}."
+                    if marker in k:
+                        k = k.replace(marker, f".attentions.0.{old}.")
+                        break
+                if ".attentions.0." in k and len(shape) == 4:
+                    shape = [shape[0], shape[1] * shape[2] * shape[3]]
+            actual[k] = shape
+        want = {k: v for k, v in manifest.items() if not _ignorable(k)}
+        report[component] = {
+            "missing": sorted(set(want) - set(actual)),
+            "extra": sorted(set(actual) - set(want)),
+            "shape": sorted(k for k in set(want) & set(actual) if want[k] != actual[k]),
+        }
+    return report
+
+
+def _modern_vae(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Legacy VAE attention names to the modern ones, (C, C, 1, 1) weights
+    to (C, C)."""
+    modern = {old: new for new, old in _VAE_ERA_RENAMES.items()}
+    out = {}
+    for k, v in sd.items():
+        if m := _VAE_LEGACY.fullmatch(k):
+            k = m[1] + modern[m[2]] + m[3]
+        if ".attentions.0." in k and v.dim() == 4:
+            v = v.reshape(v.shape[0], -1)
+        out[k] = v
+    return out
+
+
+def load_checkpoint(config: SDConfig, checkpoint_dir: str) -> dict:
+    """A diffusers checkpoint directory -> {"unet", "text", "vae"[,
+    "position_net"]} state dicts for `runtime.models.build_bundle`, named as
+    the port's modules name their parameters: `*.position_ids` dropped, the
+    VAE attention in the modern names, GLIGEN's `position_net.*` split off
+    the UNet's file. Tensors stay on the host in the file's dtype; the
+    strict load into the modules refuses anything else missing or extra."""
+    def load(component):
+        sd = _load_state_dict(os.path.join(checkpoint_dir, component))
+        return {k: v for k, v in sd.items() if not _ignorable(k)}
+
+    unet = load("unet")
+    out = {"unet": unet, "text": load(config.text_encoder_dir),
+           "vae": _modern_vae(load("vae"))}
+    if config.unet.use_gligen:
+        prefix = "position_net."
+        out["position_net"] = {k[len(prefix):]: v for k, v in unet.items()
+                               if k.startswith(prefix)}
+        if not out["position_net"]:
+            raise ValueError(f"{checkpoint_dir} has no GLIGEN position_net weights but "
+                             f"config.unet.use_gligen is set")
+        out["unet"] = {k: v for k, v in unet.items() if not k.startswith(prefix)}
+    return out
+
+
+def load_sam_state_dict(component_dir: str) -> dict[str, torch.Tensor]:
+    """A transformers `SamModel` checkpoint directory -> the state dict of the
+    port's `Sam` (SAM_UNUSED_PREFIXES dropped), on the host in the file's
+    dtype."""
+    return {k: v for k, v in _load_state_dict(component_dir).items()
+            if not k.startswith(SAM_UNUSED_PREFIXES)}

@@ -54,12 +54,19 @@ def _value(path, leaf, rng):
     raise ValueError(f"no init rule for {'/'.join(p.key for p in path)}")
 
 
+def tiny_params(seed: int = 0, config=None):
+    """The JAX parameter tree (numpy leaves) of `config` (default tiny-test),
+    drawn by the rules above."""
+    config = config or jmodels.SD_CONFIGS["tiny-test"]()
+    shapes = jax.eval_shape(lambda: jmodels.init_random_params(config, seed=seed))
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(lambda p, x: _value(p, x, rng), shapes)
+
+
 def tiny_bundles(seed: int = 0):
     """(JAX bundle, port bundle on the CPU) of the tiny-test config."""
     config = jmodels.SD_CONFIGS["tiny-test"]()
-    shapes = jax.eval_shape(lambda: jmodels.init_random_params(config, seed=seed))
-    rng = np.random.default_rng(seed)
-    params = jax.tree_util.tree_map_with_path(lambda p, x: _value(p, x, rng), shapes)
+    params = tiny_params(seed, config)
     unet, text_encoder, vae, position_net = jmodels.build_modules(config)
     jb = jmodels.ModelBundle(
         config=config, tokenizer=jtok.default_tokenizer(), unet=unet,

@@ -77,10 +77,23 @@ def _port_modules():
                   for p in pkg.rglob("*.py"))
 
 
+# Modules of the checkpoint and stage-1 slice: the guard below imports them
+# with the rest, and none of them may need the `safetensors` package (the
+# chip host lacks it) or import `requests` before a query.
+CHECKPOINT_AND_STAGE_ONE = [
+    "lmdx_torch.runtime.safetensors_io", "lmdx_torch.runtime.fabricate",
+    "lmdx_torch.runtime.convert", "lmdx_torch.runtime.models",
+    "lmdx_torch.text.cache", "lmdx_torch.text.llm_client", "lmdx_torch.eval.predicates",
+    "lmdx_torch.eval.prompts", "lmdx_torch.eval.stage_one", "lmdx_torch.utils.vis",
+    "lmdx_torch.cli.prompt_batch", "lmdx_torch.cli.eval_stage_one"]
+
+
 def test_port_imports_no_jax_and_nothing_of_lmdx():
+    assert set(CHECKPOINT_AND_STAGE_ONE) <= set(_port_modules())
     code = ("import sys\n"
             "sys.modules['jax'] = None\nsys.modules['flax'] = None\n"
             "sys.modules['lmdx'] = None\n"
+            "sys.modules['safetensors'] = None\nsys.modules['requests'] = None\n"
             f"for m in {_port_modules()!r}:\n"
             "    __import__(m)\n"
             "assert not any(k == 'lmdx' or k.startswith('lmdx.') for k in sys.modules\n"
@@ -90,7 +103,7 @@ def test_port_imports_no_jax_and_nothing_of_lmdx():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
-    banned = re.compile(r"^\s*(from|import)\s+(lmdx|jax|flax)(\.|\s|$)")
+    banned = re.compile(r"^\s*(from|import)\s+(lmdx|jax|flax|safetensors)(\.|\s|$)")
     for path in [*(REPO / "lmdx_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), f"{path}: {line}"

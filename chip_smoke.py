@@ -3,17 +3,18 @@
 
     python3 chip_smoke.py [--steps N] [--lmd-steps N] [--optin-steps N]
                           [--single-steps N] [--baseline-steps N] [--ckpt-steps N]
-                          [--profile PATH]
+                          [--cli-f32-steps N] [--cli-steps N] [--profile PATH]
 
-Eight phases; any failure exits nonzero before the final line is printed.
-Phases 3-7 run on random weights (LMDX_CHECKPOINT_DIR is unset for them);
-phase 8 loads checkpoints from disk.
+Nine phases; any failure exits nonzero before the final line is printed.
+Phases 3-7 and 9 run on random weights (LMDX_CHECKPOINT_DIR is unset for
+them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
-   six), one nvcc per source, all started together, into build/kernels/, and
-   prints each kernel's registers and spilled bytes (`ptxas -v`). Fails if
-   an attention kernel (the forward body's four kernels and the backward's
-   two) instantiated for a head dim the paths use (48, 64, 80, 160) spills.
+   seven), one nvcc per source, all started together, into build/kernels/,
+   and prints each kernel's registers and spilled bytes (`ptxas -v`). Fails
+   if an attention kernel (the forward body's four kernels, the backward's
+   two, and the float32 body's four) instantiated for a head dim the paths
+   use (48, 64, 80, 160) spills.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes. Flash attention: 8 heads; (L, head_dim) =
    (4096, 40), (1024, 80), (256, 160); at every batch and KV the driven
@@ -38,6 +39,13 @@ phase 8 loads checkpoints from disk.
    one PyTorch call computing the same function (SDPA's flash forward and
    its backward op; for SAM, SDPA with the dense (B, H, N, N) bias
    materialized outside the timed call as its mask), a yardstick only.
+   The float32 forms of kernels 1, 2 and 5 (`csrc/attention_f32.cu`) at
+   every shape phase 9 gives them (F32_FWD_CASES, F32_BWD_CASES,
+   F32_SAM_CASES), within 1e-4 * max|plain| for O and each gradient and
+   1e-4 for the LSE (full float32 on both sides: TF32 is off), bound by
+   operations at the float32 FMA rate (67 TFLOP/s), library =
+   `F.scaled_dot_product_attention` at float32 (SAM with the dense bias as
+   its mask) and the memory-efficient attention backward op.
    The opt-in kernels, at every shape and batch the opt-in path (phase 5)
    gives them: the head-packed forward at L = 4096, d = 40 (KV = L and
    L + 30, batch 8/4/2), timed in turn with the per-head forward on the same
@@ -107,7 +115,8 @@ phase 8 loads checkpoints from disk.
    directory, removed at the end; checks that `validate_checkpoint` is clean
    for both, that `load_bundle` refuses the checkpoint without a tokenizer
    (and loads it with LMDX_ALLOW_WORD_TOKENIZER=1, set for this phase only)
-   and refuses dtype float32 on the card at load time; takes the template's
+   and refuses dtype float32 with the bf16-only options (kernels 3 and 4)
+   on the card at load time; takes the template's
    in-context response for STAGE1_CAPTION through the port's parser and a
    LayoutCache file into a spec; then loads each bundle (and, for LMD, SAM
    through `load_segmenter`) on the card, printing the load wall, GB/s of
@@ -117,10 +126,28 @@ phase 8 loads checkpoints from disk.
    `--ckpt-steps` DDIM steps, with phase 6's checks (images, masks, launches,
    every wrapper shape one phase 2 checked). Each bundle is freed before the
    next.
+9. The stage-2 CLI (`lmdx_torch.cli.generate.main(argv)`, in this process)
+   on a LayoutCache file of the three demo prompts (hand-written responses
+   in the template's format: 3, 1 and 2 boxes). (a) `--run-model lmd
+   --use_autocast 0` on SD1.5 (random weights, float32, 512x512,
+   `--cli-f32-steps` DDIM steps, default 50) on the first two prompts, with
+   `--sam-checkpoint` a SAM ViT-B fabricated in fp16 and loaded in bf16, as
+   the JAX CLI loads it: `_drive`'s checks with every UNet attention on the
+   float32 kernels (the bf16 flash kernels launch 0 times), the SAM launches
+   counted, TF32 off, and each img_0.png equal to the method's image; wall,
+   images/s and peak memory. (b) One float32 SamSegmenter on the same SAM
+   weights, box-prompted, on one of (a)'s images: 12 launches of kernel 5's
+   float32 form. (c) `--run-model lmd_plus --image-batch-size 2` on the three
+   prompts, bf16, pipelined (the images of a batch are copied after the next
+   batch is launched), `--cli-steps` DDIM steps (default 20; phase 3 runs
+   this work at 50): three image directories, the `[batched] 3/3 done` line,
+   and a rerun that schedules `[batched] 0 jobs`. Every wrapper shape must
+   be one phase 2 checked.
 
-Matmuls and convolutions run in bf16; TF32 is turned off for both
-(torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32),
-so the plain versions' f32 products are full f32.
+Matmuls and convolutions run in bf16 (phase 9 (a): float32); TF32 is turned
+off for both (torch.backends.cuda.matmul.allow_tf32 and
+torch.backends.cudnn.allow_tf32), so the plain versions' f32 products are full
+f32.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -141,6 +168,8 @@ PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL_REL = 2e-2
 TOL_LSE = 1e-3
+TOL_F32 = 1e-4            # float32 kernels: O and each gradient, share of max|plain|
+TOL_LSE_F32 = 1e-4        # float32 kernels: the LSE, absolute
 TOL_SUMS = 1e-3           # pair_stats: f32 sums in another order
 TOL_OPTIN = 5e-2          # options-on UNet against options-off, share of max|off|
 
@@ -199,7 +228,7 @@ def cuda_ms(fn, reps: int) -> float:
 # use (40 -> 48, 64, 80, 160): none of their kernels may spill.
 PATH_HEAD_DIMS = ("48", "64", "80", "160")
 ATTENTION_SOURCES = ("flash_fwd", "flash_bwd", "sam_attention", "flash_fwd_packed",
-                     "flash_fwd_fusedheads")
+                     "flash_fwd_fusedheads", "attention_f32")
 
 
 def phase_build():
@@ -221,13 +250,13 @@ def phase_build():
         fail(f"build: kernels of the paths' head dims spill registers: {spilled}")
 
 
-def _inputs(b, h, lq, lk, d, seed):
+def _inputs(b, h, lq, lk, d, seed, dtype=None):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def mk(L):
-        return torch.randn((b, h, L, d), generator=g, device="cuda").to(torch.bfloat16)
+        return torch.randn((b, h, L, d), generator=g, device="cuda").to(dtype or torch.bfloat16)
 
     return mk(lq), mk(lk), mk(lk), mk(lq)
 
@@ -259,13 +288,24 @@ def _bound(total: dict, flops: float, nbytes: float,
 # GLIGEN, the fuser's L + 30. Backward: batch 2 (overall guidance of two
 # images, fuser KV in LMD+; LMD's per-box guidance of 2 boxes), 4 (LMD's
 # per-box guidance of 4 boxes; SD1.5 has no fuser) and 1 (single-image
-# guidance, fuser KV in LMD+).
-FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)] + [(6, 0)]
+# guidance, fuser KV in LMD+). Phase 9's batched LMD+ adds batch 6 with the
+# fuser (a group of 3 boxes: 3 x CFG).
+FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)] + [(6, 0), (6, 30)]
 BWD_CASES = [(2, 0), (2, 30), (4, 0), (1, 0), (1, 30)]
 FLASH_LEVELS = ((4096, 40), (1024, 80), (256, 160))   # (tokens, head_dim) at 8 heads
 # (B * heads, grid side) of SAM ViT-B's attention on a chunk of 4 images
-# (the batched LMD path) and of 2 (one 2-box layout): global and windowed.
-SAM_CASES = [(4 * 12, 64), (4 * 25 * 12, 14), (2 * 12, 64), (2 * 25 * 12, 14)]
+# (the batched LMD path), of 2 (one 2-box layout), of 3 and of 1 (phase 9's
+# demo layouts of 3 boxes and 1): global and windowed.
+SAM_CASES = [(4 * 12, 64), (4 * 25 * 12, 14), (2 * 12, 64), (2 * 25 * 12, 14),
+             (3 * 12, 64), (3 * 25 * 12, 14), (12, 64), (25 * 12, 14)]
+# The float32 kernels at every (batch, Lk - L) phase 9 gives them: its
+# single-image LMD on a 3-box and a 1-box layout (per-box passes at batch 6
+# and 2, per-box guidance at 3 and 1, overall pass at 2, overall guidance at
+# 1; SD1.5 has no fuser), and the fuser's L + 30 at the batches a float32
+# LMD+ of those layouts would give (guidance at 1). SAM: one float32 image.
+F32_FWD_CASES = [(b, extra) for b in (6, 3, 2, 1) for extra in (0, 30)]
+F32_BWD_CASES = [(3, 0), (1, 0), (1, 30)]
+F32_SAM_CASES = [(12, 64), (25 * 12, 14)]
 
 
 # (Lq, Lk, head_dim) of the backward calls only the opt-in path makes.
@@ -303,44 +343,62 @@ def _fmt(ms, plain, lib, bound, flops):
             f"{flops / ms / 1e9:.1f} TFLOP/s)")
 
 
-def _check_bwd(bwd, b, heads, L, lk, d, reps):
+def _check_bwd(bwd, b, heads, L, lk, d, reps, dtype=None):
     """Holds the flash backward against its plain version at one shape and
-    times it, its plain version and SDPA's flash backward op."""
+    times it, its plain version and SDPA's backward op (bf16: the flash
+    attention op's; float32: the memory-efficient attention op's, the SDPA
+    backend that takes float32)."""
     import torch
 
     from lmdx_torch.nn.kernels import flash_attention as fa
 
-    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
-    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    f32 = dtype == torch.float32
+    if f32:
+        sdpa = torch.ops.aten._scaled_dot_product_efficient_attention
+        sdpa_bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+    else:
+        sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+        sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
     scale = d ** -0.5
-    q, k, v, do = _inputs(b, heads, L, lk, d, seed=L + lk + b + 1)
+    q, k, v, do = _inputs(b, heads, L, lk, d, seed=L + lk + b + 1, dtype=dtype)
     o, lse = fa.flash_attention_fwd(q, k, v)
     got = fa.flash_attention_bwd(q, k, v, lse, o, do)
     want = fa.attention_bwd_plain(q, k, v, lse, o, do)
     torch.cuda.synchronize()
-    errs = [_err(g_, w_) for g_, w_ in zip(got, want)]
+    errs = [_err(g_, w_, TOL_F32 if f32 else TOL_REL) for g_, w_ in zip(got, want)]
     if not all(ok for _, ok in errs):
-        fail(f"backward disagrees at B={b} L={L} Lk={lk} d={d}: "
+        fail(f"backward{' f32' if f32 else ''} disagrees at B={b} L={L} Lk={lk} d={d}: "
              f"{[e for e, _ in errs]}")
     bh = b * heads
+    size = 4 if f32 else 2
     flops = 10 * bh * L * lk * d
-    nbytes = 2 * bh * d * (3 * L + 2 * lk) + 4 * bh * L + 2 * bh * d * (L + 2 * lk)
-    bound = _bound(bwd, flops, nbytes)
+    nbytes = (size * bh * d * (3 * L + 2 * lk) + 4 * bh * L
+              + size * bh * d * (L + 2 * lk))
+    bound = _bound(bwd, flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
     ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, lse, o, do), reps)
     plain = cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, lse, o, do), reps)
     lib = None
     try:
-        outs = sdpa(q, k, v, 0.0, False, False, scale=scale)
+        if f32:
+            outs = sdpa(q, k, v, None, True, scale=scale)
+        else:
+            outs = sdpa(q, k, v, 0.0, False, False, scale=scale)
     except (RuntimeError, TypeError) as exc:  # a yardstick only
         bwd["library_ok"] = False
         log(f"  library backward unavailable: {type(exc).__name__}: {exc}")
     else:
-        lo, llse, cq, ck, mq, mk_, seed_, off_ = outs[:8]
-        lib = _library_ms(bwd, "backward", lambda: sdpa_bwd(
-            do, q, k, v, lo, llse, cq, ck, mq, mk_, 0.0, False, seed_, off_,
-            scale=scale), reps)
+        if f32:
+            lo, llse, seed_, off_ = outs[:4]
+            lib = _library_ms(bwd, "backward", lambda: sdpa_bwd(
+                do, q, k, v, None, lo, llse, seed_, off_, 0.0, [True, True, True, False],
+                False, scale=scale), reps)
+        else:
+            lo, llse, cq, ck, mq, mk_, seed_, off_ = outs[:8]
+            lib = _library_ms(bwd, "backward", lambda: sdpa_bwd(
+                do, q, k, v, lo, llse, cq, ck, mq, mk_, 0.0, False, seed_, off_,
+                scale=scale), reps)
     _add(bwd, ms, plain, bound, lib, max(e for e, _ in errs))
-    log(f"  bwd B={b} h={heads} Lq={L} Lk={lk} d={d}: "
+    log(f"  bwd{' f32' if f32 else ''} B={b} h={heads} Lq={L} Lk={lk} d={d}: "
         f"{_fmt(ms, plain, lib, bound, flops)} "
         f"err dq/dk/dv {[f'{e:.2e}' for e, _ in errs]}")
     torch.cuda.empty_cache()
@@ -439,6 +497,88 @@ def phase_sam_kernel():
         del q, k, v, bias_h, bias_w, o
         torch.cuda.empty_cache()
     return t
+
+
+def phase_f32_kernels():
+    """The float32 forms of kernels 1, 2 and 5 against their plain versions
+    (full float32: TF32 is off) at every shape phase 9 gives them: O and each
+    gradient within 1e-4 * max|plain|, the LSE within 1e-4. Bound: operations
+    at the float32 FMA rate; library: `F.scaled_dot_product_attention` at
+    float32 (forward; SAM with the dense (B, H, N, N) bias as its mask) and
+    the memory-efficient attention backward op."""
+    import torch
+    import torch.nn.functional as F
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import sam_attention as sa
+
+    heads, f32 = 8, torch.float32
+    fwd, bwd, sam = _totals(), _totals(), _totals()
+    log(f"  float32 kernels: bound = operations at the float32 FMA rate "
+        f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s) or bytes at {PEAK_BYTES / 1e12:.2f} TB/s, "
+        f"the larger; tolerance {TOL_F32} * max|plain|, LSE {TOL_LSE_F32}")
+    for L, d in FLASH_LEVELS:
+        reps = 3 if L == 4096 else 20
+        for b, extra in F32_FWD_CASES:
+            lk = L + extra
+            q, k, v, _ = _inputs(b, heads, L, lk, d, seed=L + lk + b, dtype=f32)
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+            torch.cuda.synchronize()
+            e_o, ok_o = _err(o, o_ref, TOL_F32)
+            e_l = (lse - lse_ref).abs().max().item()
+            if not (ok_o and e_l <= TOL_LSE_F32):
+                fail(f"forward f32 disagrees at B={b} L={L} Lk={lk} d={d}: |dO|={e_o} "
+                     f"|dLSE|={e_l}")
+            del o_ref, lse_ref
+            bh = b * heads
+            flops = 4 * bh * L * lk * d
+            nbytes = 4 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
+            bound = _bound(fwd, flops, nbytes, PEAK_F32_FLOPS)
+            ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
+            plain = cuda_ms(lambda: fa.attention_fwd_plain(q, k, v), reps)
+            torch.cuda.empty_cache()
+            lib = _library_ms(fwd, "forward f32", lambda: F.scaled_dot_product_attention(
+                q, k, v), reps)
+            _add(fwd, ms, plain, bound, lib, e_o)
+            log(f"  fwd f32 B={b} h={heads} Lq={L} Lk={lk} d={d}: "
+                f"{_fmt(ms, plain, lib, bound, flops)} err O {e_o:.2e} LSE {e_l:.2e}")
+            del q, k, v, o, lse
+            torch.cuda.empty_cache()
+        for b, extra in F32_BWD_CASES:
+            _check_bwd(bwd, b, heads, L, L + extra, d, reps, dtype=f32)
+
+    d = 64
+    for bh, g in F32_SAM_CASES:
+        n, reps = g * g, 5 if g == 64 else 20
+        gen = torch.Generator(device="cuda").manual_seed(n + 1)
+        q, k, v, bias_h, bias_w = (
+            torch.randn((1, bh, n, last), generator=gen, device="cuda")
+            for last in (d, d, d, g, g))
+        o = sa.sam_attention(q, k, v, bias_h, bias_w)
+        o_ref = sa.sam_attention_plain(q, k, v, bias_h, bias_w)
+        torch.cuda.synchronize()
+        err, ok = _err(o, o_ref, TOL_F32)
+        if not ok:
+            fail(f"sam_attention f32 disagrees at B*H={bh} N={n}: |dO|={err}")
+        del o_ref
+        flops = 4 * bh * n * n * d
+        nbytes = 4 * bh * n * d * 4 + 4 * bh * n * 2 * g
+        bound = _bound(sam, flops, nbytes, PEAK_F32_FLOPS)
+        ms = cuda_ms(lambda: sa.sam_attention(q, k, v, bias_h, bias_w), reps)
+        plain = cuda_ms(lambda: sa.sam_attention_plain(q, k, v, bias_h, bias_w), reps)
+        torch.cuda.empty_cache()
+        mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(1, bh, n, n)
+        lib = _library_ms(sam, "SAM attention f32", lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), reps)
+        del mask
+        _add(sam, ms, plain, bound, lib, err)
+        log(f"  sam f32 B*H={bh} N={n} d={d} grid {g}x{g}: "
+            f"{_fmt(ms, plain, lib, bound, flops)}, err O {err:.2e}")
+        del q, k, v, bias_h, bias_w, o
+        torch.cuda.empty_cache()
+    return {"flash_attention_fwd_f32": fwd, "flash_attention_bwd_f32": bwd,
+            "sam_attention_f32": sam}
 
 
 # The opt-in path's shapes (SD1.x at 512x512: 8 heads; (tokens, width) =
@@ -659,8 +799,8 @@ def _profile_summary(prof, wall: float, path: str) -> None:
     if busy <= 0:
         log("profile: the profiler reported no device time")
         return
-    flash = sum(ms for k, ms, _ in rows if "flash_" in k)
-    sam = sum(ms for k, ms, _ in rows if "sam_attention" in k)
+    flash = sum(ms for k, ms, _ in rows if "flash_" in k or "attn_f32" in k)
+    sam = sum(ms for k, ms, _ in rows if k.startswith("sam_"))
     rows.sort(key=lambda r: -r[1])
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
@@ -697,7 +837,9 @@ def _default_expect(cfg, steps, fuser_beta, ladders, expected_sam, passes=2,
             for budgets, max_index in ladders)
         return ({"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
                  "flash_attention_fwd_packed": 0, "flash_attention_fwd_fusedheads": 0,
-                 "pair_stats": 0, "sam_attention": expected_sam}, ladder_max,
+                 "pair_stats": 0, "sam_attention": expected_sam,
+                 "flash_attention_fwd_f32": 0, "flash_attention_bwd_f32": 0,
+                 "sam_attention_f32": 0}, ladder_max,
                 f"full UNet {full} flash layers per forward, early-exit {early}")
 
     return expect
@@ -795,7 +937,8 @@ def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
         return ({"flash_attention_fwd": 0, "flash_attention_bwd": bwd,
                  "flash_attention_fwd_packed": packed,
                  "flash_attention_fwd_fusedheads": fused, "pair_stats": stats,
-                 "sam_attention": 0}, ladder_max,
+                 "sam_attention": 0, "flash_attention_fwd_f32": 0,
+                 "flash_attention_bwd_f32": 0, "sam_attention_f32": 0}, ladder_max,
                 f"{norms_full} GroupNorms per full forward, {norms_early} per guidance "
                 f"forward and as many in its backward, {n_iters} guidance iterations")
 
@@ -803,7 +946,7 @@ def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
 
 
 def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passes=2,
-           solver="DDIM"):
+           solver="DDIM", bwd_key="flash_attention_bwd"):
     """Drives one main path through its entry point and checks it.
 
     `run()` is called once with every launch count set to 0 just before it;
@@ -813,8 +956,9 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passe
     is written there). Checks the images (uint8, cfg-sized, non-constant,
     from finite latents), that `n_passes` sampling passes ran, and that every
     kernel's launches equal what `expect(iterations)` says the dispatch, the
-    schedule and the recorded iterations imply (the backward also within the
-    ladders' maximum). Returns the results and the launch counts."""
+    schedule and the recorded iterations imply (the backward, `bwd_key`, also
+    within the ladders' maximum). Returns the results and the launch
+    counts."""
     import numpy as np
     import torch
 
@@ -852,9 +996,9 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passe
         passes[-1].append(1)
         return orig_boxdiff(*a, **kw)
 
-    def decode(bundle_, latents):
+    def decode(bundle_, latents, **kw):
         decoded.append(bool(torch.isfinite(latents).all().item()))
-        return orig_decode(bundle_, latents)
+        return orig_decode(bundle_, latents, **kw)
 
     def segment_batch(*a, **kw):
         torch.cuda.synchronize()
@@ -921,7 +1065,7 @@ def _drive(label, run, cfg, steps, expect, profile=None, segmenter=None, n_passe
     for name, want in expected.items():
         if launches[name] != want:
             fail(f"{label}: {name} launches {launches[name]} != {want}")
-    bwd = launches["flash_attention_bwd"]
+    bwd = launches[bwd_key]
     if not (0 < bwd <= ladder_max or bwd == ladder_max == 0):
         fail(f"{label}: backward launches {bwd} outside (0, ladder max {ladder_max}]")
     seg = f", SAM segment wall {sum(seg_walls):.3f} s" if segmenter is not None else ""
@@ -1150,9 +1294,9 @@ def phase_optin(steps: int, profile: str | None = None):
 
 @contextlib.contextmanager
 def _recording_shapes():
-    """Records the shape of every call to the flash forward and backward and
-    to SAM attention while active (the wrappers still launch and count);
-    yields the sets of shapes by wrapper."""
+    """Records the shape and dtype of every call to the flash forward and
+    backward and to SAM attention while active (the wrappers still launch and
+    count); yields the sets of (shape..., dtype name) by wrapper."""
     from lmdx_torch.nn.kernels import flash_attention as fa
     from lmdx_torch.nn.kernels import sam_attention as sa
 
@@ -1161,15 +1305,15 @@ def _recording_shapes():
                                  sa.sam_attention)
 
     def rec_fwd(q, k, v):
-        seen["fwd"].add((*q.shape[:3], k.shape[2], q.shape[3]))
+        seen["fwd"].add((*q.shape[:3], k.shape[2], q.shape[3], _dtype_name(q)))
         return fwd(q, k, v)
 
     def rec_bwd(q, k, v, *rest):
-        seen["bwd"].add((*q.shape[:3], k.shape[2], q.shape[3]))
+        seen["bwd"].add((*q.shape[:3], k.shape[2], q.shape[3], _dtype_name(q)))
         return bwd(q, k, v, *rest)
 
     def rec_sam(q, *rest):
-        seen["sam"].add((q.shape[0] * q.shape[1], q.shape[2]))
+        seen["sam"].add((q.shape[0] * q.shape[1], q.shape[2], _dtype_name(q)))
         return sam(q, *rest)
 
     fa.flash_attention_fwd, fa.flash_attention_bwd, sa.sam_attention = rec_fwd, rec_bwd, rec_sam
@@ -1179,13 +1323,23 @@ def _recording_shapes():
         fa.flash_attention_fwd, fa.flash_attention_bwd, sa.sam_attention = originals
 
 
+def _dtype_name(t) -> str:
+    return str(t.dtype).rpartition(".")[2]
+
+
 def _phase2_shapes():
     """Every shape phase 2 holds the flash forward, the default paths'
-    backward and SAM attention to, as `_recording_shapes` records them."""
+    backward and SAM attention to, in bf16 and in float32, as
+    `_recording_shapes` records them."""
     heads = 8
-    return {"fwd": {(b, heads, L, L + e, d) for L, d in FLASH_LEVELS for b, e in FWD_CASES},
-            "bwd": {(b, heads, L, L + e, d) for L, d in FLASH_LEVELS for b, e in BWD_CASES},
-            "sam": {(bh, g * g) for bh, g in SAM_CASES}}
+
+    def flash(cases, dtype):
+        return {(b, heads, L, L + e, d, dtype) for L, d in FLASH_LEVELS for b, e in cases}
+
+    return {"fwd": flash(FWD_CASES, "bfloat16") | flash(F32_FWD_CASES, "float32"),
+            "bwd": flash(BWD_CASES, "bfloat16") | flash(F32_BWD_CASES, "float32"),
+            "sam": ({(bh, g * g, "bfloat16") for bh, g in SAM_CASES}
+                    | {(bh, g * g, "float32") for bh, g in F32_SAM_CASES})}
 
 
 SINGLE_BUNDLES = (
@@ -1447,6 +1601,7 @@ def phase_checkpoint(steps: int):
 
     import torch
 
+    from lmdx_torch.config import ALL_KERNELS
     from lmdx_torch.runtime import convert, fabricate, models
 
     t_phase = time.perf_counter()
@@ -1474,8 +1629,8 @@ def phase_checkpoint(steps: int):
 
             key = CKPT_MODELS[0][0]
             refusals = []
-            for kw, needle in (({}, "WordTokenizer"), ({"dtype": "float32"},
-                                                         "float32 instantiations")):
+            for kw, needle in (({}, "WordTokenizer"),
+                               ({"dtype": "float32", "kernels": ALL_KERNELS}, "float32 forms")):
                 try:
                     models.load_bundle(key, dirs[key], device="cuda", **kw)
                 except ValueError as exc:
@@ -1535,6 +1690,216 @@ def phase_checkpoint(steps: int):
     return _sum_launches(all_launches)
 
 
+# Hand-written stage-1 responses, in the template's format, for the three
+# demo prompts (eval/prompts.py::PROMPTS_DEMO): 3 boxes, 1 box, 2 boxes.
+DEMO_RESPONSES = (
+    "Objects: [('a blue cube', [232, 135, 132, 132]), ('a red cube', [232, 280, 132, 132]), "
+    "('a vase', [80, 250, 90, 160])]\nBackground prompt: An indoor scene\nNegative prompt: ",
+    "Objects: [('a wooden table', [60, 250, 392, 200])]\nBackground prompt: A realistic "
+    "photo of an indoor scene\nNegative prompt: bananas",
+    "Objects: [('a white deer', [60, 200, 180, 230]), ('a gray bear', [290, 210, 190, 220])]"
+    "\nBackground prompt: A realistic image of an empty factory scene\nNegative prompt: ",
+)
+
+
+def _cli(argv) -> str:
+    """`lmdx_torch.cli.generate.main(argv)` in this process; returns what it
+    printed (also logged) and fails unless it returned 0."""
+    import io
+
+    from lmdx_torch.cli import generate
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = generate.main(argv)
+    for line in out.getvalue().splitlines():
+        log(f"  | {line[:200]}")
+    if rc != 0:
+        fail(f"cli {argv}: returned {rc}")
+    return out.getvalue()
+
+
+def _read_png(path: str):
+    import numpy as np
+    from PIL import Image
+
+    if not os.path.exists(path):
+        fail(f"cli: {path} was not written")
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def _check_cli_images(label, run_dir, dirs, cfg, results=None):
+    """Each prompt directory's img_0.png is a uint8 (H, W, 3) image, not
+    constant, and equal to the method's result when `results` is given."""
+    for i, ind in enumerate(dirs):
+        img = _read_png(os.path.join(run_dir, str(ind), "img_0.png"))
+        if img.dtype.name != "uint8" or img.shape != (cfg.height, cfg.width, 3) or img.std() == 0:
+            fail(f"{label}: {run_dir}/{ind}/img_0.png is {img.dtype} {img.shape}, "
+                 f"std {img.std()}")
+        if results is not None and not (img == results[i].image).all():
+            fail(f"{label}: {run_dir}/{ind}/img_0.png differs from the method's image")
+    log(f"{label}: {len(dirs)} image directories under {os.path.relpath(run_dir)}: "
+        f"{sorted(os.listdir(os.path.join(run_dir, str(dirs[0]))))}")
+
+
+def phase_cli(f32_steps: int, plus_steps: int, profile: str | None = None):
+    """Phase 9: the stage-2 CLI in this process on a layout cache of the demo
+    prompts. (a) float32 LMD (`--use_autocast 0`) on SD1.5 with a fabricated
+    SAM ViT-B loaded in bf16, sequential; (b) one float32 SamSegmenter call,
+    box-prompted, on one of (a)'s images; (c) bf16 LMD+ through the batched,
+    pipelined mode, run twice (the second schedules nothing). `profile`
+    traces (a) with torch.profiler into that file."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lmdx_torch.config import SD_CONFIGS
+    from lmdx_torch.eval.prompts import PROMPTS_DEMO
+    from lmdx_torch.methods import _grounded
+    from lmdx_torch.methods import lmd as lmd_method
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import sam_attention as sa
+    from lmdx_torch.nn.sam import SamSegmenter, sam_vit_base
+    from lmdx_torch.runtime import convert, fabricate, models
+    from lmdx_torch.text import parser
+    from lmdx_torch.text.cache import LayoutCache
+
+    t_phase = time.perf_counter()
+    all_launches = {}
+    with tempfile.TemporaryDirectory(prefix="lmdx_cli_") as root, \
+            _recording_shapes() as seen:
+        cache_path = os.path.join(root, "cache_demo_v0.1_gpt-4.json")
+        cache = LayoutCache(cache_path)
+        specs = []
+        for prompt, response in zip(PROMPTS_DEMO, DEMO_RESPONSES):
+            prompt = prompt.strip().rstrip(".")
+            cache.add(prompt, response)
+            layout = parser.parse_layout_response(response)
+            specs.append({"prompt": prompt, "gen_boxes": parser.filter_boxes(layout.gen_boxes)})
+        t0 = time.perf_counter()
+        fabricate.fabricate_sam(root, torch.float16)
+        sam_dir = os.path.join(root, fabricate.SAM_KEY.replace("/", "--"))
+        boxes = [len(s["gen_boxes"]) for s in specs]
+        log(f"cli: layout cache of {len(specs)} demo prompts ({boxes} boxes) and a "
+            f"fabricated SAM ViT-B in {time.perf_counter() - t0:.1f} s")
+
+        # (a) float32 LMD through the sequential loop, on two prompts.
+        cfg = SD_CONFIGS["runwayml/stable-diffusion-v1-5"]()
+        p = _grounded.GroundedParams(num_inference_steps=f32_steps)
+        n_prompts = 2
+        expected_sam = sum(sam_vit_base().encoder_layers
+                           * -(-len(s["gen_boxes"]) // SamSegmenter.CHUNK)
+                           for s in specs[:n_prompts])
+        base_expect = _default_expect(
+            cfg, f32_steps, 0.0,
+            [(p.max_iter, p.max_index_step), (p.overall_max_iter, p.overall_max_index_step)]
+            * n_prompts, expected_sam, passes=2 * n_prompts)
+
+        def f32_expect(iters):
+            want, ladder_max, note = base_expect(iters)
+            want = {**want, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                    "flash_attention_fwd_f32": want["flash_attention_fwd"],
+                    "flash_attention_bwd_f32": want["flash_attention_bwd"]}
+            return want, ladder_max, note + "; every UNet attention on the float32 kernels"
+
+        results = []
+        orig_run = lmd_method.run
+
+        def run_and_keep(*a, **kw):
+            results.append(orig_run(*a, **kw))
+            return results[-1]
+
+        f32_dir = os.path.join(root, "f32")
+        argv = ["--prompt-type", "demo", "--run-model", "lmd", "--use_autocast", "0",
+                "--num_prompts", str(n_prompts), "--cache-path", cache_path,
+                "--save-dir", f32_dir, "--sam-checkpoint", sam_dir,
+                "--num_inference_steps", str(f32_steps), "--no-continue-on-error"]
+        lmd_method.run = run_and_keep
+        try:
+            _, launches = _drive("cli lmd f32", lambda: (_cli(argv), results)[1], cfg,
+                                 f32_steps, f32_expect, profile=profile,
+                                 n_passes=2 * n_prompts, bwd_key="flash_attention_bwd_f32")
+        finally:
+            lmd_method.run = orig_run
+        if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32):
+            fail("cli lmd f32: TF32 is on after --use_autocast 0")
+        run_dir = os.path.join(f32_dir, "templatev0.1_lmd_demo", "run0")
+        _check_cli_images("cli lmd f32", run_dir, list(range(n_prompts)), cfg, results)
+        for ind in range(n_prompts):
+            for name in ("boxes.png", "masks_0.png"):
+                _read_png(os.path.join(run_dir, str(ind), name))
+        all_launches["lmd f32"] = launches
+
+        # (b) kernel 5's float32 form: a float32 SAM on the same weights.
+        segmenter = SamSegmenter(models.build_sam(
+            state_dict=convert.load_sam_state_dict(sam_dir), device="cuda",
+            dtype=torch.float32))
+        x, y, w, h = specs[0]["gen_boxes"][0][1]
+        box = (x / 512, y / 512, (x + w) / 512, (y + h) / 512)
+        sa.reset_launch_counts()
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = segmenter.segment_batch([results[0].image], input_boxes=[[box]],
+                                      target_hw=(cfg.latent_height, cfg.latent_width))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**fa.LAUNCHES, **sa.LAUNCHES}
+        masks, iou = out[0]
+        log(f"cli sam f32: box-prompted segment_batch of 1 image in {wall:.3f} s, launches "
+            f"{launches}, mask area {int(np.asarray(masks).sum())}, IoU {np.asarray(iou)}")
+        want = segmenter.config.encoder_layers
+        if launches["sam_attention_f32"] != want or launches["sam_attention"] != 0:
+            fail(f"cli sam f32: sam_attention_f32 launches {launches['sam_attention_f32']} "
+                 f"(expected {want}), bf16 {launches['sam_attention']} (expected 0)")
+        if not np.isfinite(np.asarray(iou)).all():
+            fail("cli sam f32: non-finite IoU")
+        all_launches["sam f32"] = {k: launches.get(k, 0) for k in all_launches["lmd f32"]}
+        del segmenter
+        torch.cuda.empty_cache()
+
+        # (c) bf16 LMD+ through the batched, pipelined mode; its rerun
+        # finds every image and schedules nothing.
+        plus_dir = os.path.join(root, "plus")
+        argv = ["--prompt-type", "demo", "--run-model", "lmd_plus", "--image-batch-size", "2",
+                "--cache-path", cache_path, "--save-dir", plus_dir, "--force_run_ind", "0",
+                "--num_inference_steps", str(plus_steps), "--no-continue-on-error"]
+        fa.reset_launch_counts()
+        sa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        printed = _cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**fa.LAUNCHES, **sa.LAUNCHES}
+        plus_cfg = SD_CONFIGS["gligen/diffusers-generation-text-box"]()
+        for needle in ("[batched] 3 jobs, batch size 2 (pipelined)", "[batched] 3/3 done"):
+            if needle not in printed:
+                fail(f"cli lmd_plus batched: no {needle!r} line")
+        run_dir = os.path.join(plus_dir, "templatev0.1_lmd_plus_demo", "run0")
+        _check_cli_images("cli lmd_plus batched", run_dir, [0, 1, 2], plus_cfg)
+        if launches["flash_attention_fwd"] <= 0 or launches["flash_attention_bwd"] <= 0 or any(
+                launches[k] for k in ("flash_attention_fwd_f32", "flash_attention_bwd_f32",
+                                      "sam_attention", "sam_attention_f32")):
+            fail(f"cli lmd_plus batched: launches {launches}")
+        log(f"cli lmd_plus batched: 3 images, 512x512, {plus_steps} DDIM steps, pipelined: "
+            f"wall {wall:.2f} s with the bundle's build, {3 / wall:.4f} images/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
+        all_launches["lmd_plus batched"] = {k: launches.get(k, 0)
+                                            for k in all_launches["lmd f32"]}
+        t0 = time.perf_counter()
+        if "[batched] 0 jobs" not in _cli(argv):
+            fail("cli lmd_plus batched: the rerun scheduled jobs")
+        log(f"cli lmd_plus batched: the rerun scheduled 0 jobs in "
+            f"{time.perf_counter() - t0:.2f} s (the bundle's build)")
+    _require_checked_shapes("cli", seen)
+    log(f"cli: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return _sum_launches(all_launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1555,10 +1920,17 @@ def main() -> None:
                     help="DDIM steps of phase 8's LMD+ and LMD renders on the loaded "
                          "checkpoints (depth only; a rehearsal flag: the check is the 50 "
                          "steps of the default)")
+    ap.add_argument("--cli-f32-steps", type=int, default=50,
+                    help="DDIM steps of phase 9's float32 LMD through the CLI (depth only; a "
+                         "rehearsal flag: the check is the 50 steps of the default)")
+    ap.add_argument("--cli-steps", type=int, default=20,
+                    help="DDIM steps of phase 9's batched bf16 LMD+ through the CLI (depth "
+                         "only: phase 3 runs the same work at 50 steps)")
     ap.add_argument("--profile", metavar="PATH", default=None,
-                    help="trace the three paths with torch.profiler and write the device "
-                         "time by kernel to PATH and to PATH with _lmd and _optin before "
-                         "its extension (the wall times then include the tracing cost)")
+                    help="trace the three paths and phase 9's float32 LMD with "
+                         "torch.profiler and write the device time by kernel to PATH and to "
+                         "PATH with _lmd, _optin and _cli before its extension (the wall "
+                         "times then include the tracing cost)")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "lmdx_torch")):
@@ -1586,21 +1958,24 @@ def main() -> None:
     kernels = phase_kernels()
     kernels["sam_attention"] = phase_sam_kernel()
     kernels.update(phase_optin_kernels())
+    kernels.update(phase_f32_kernels())
     plus = phase_main_path(args.steps, args.profile)
     lmd_profile = optin_profile = None
+    root, ext = os.path.splitext(args.profile or "")
     if args.profile:
-        root, ext = os.path.splitext(args.profile)
         lmd_profile, optin_profile = f"{root}_lmd{ext}", f"{root}_optin{ext}"
     lmd = phase_lmd(args.lmd_steps, lmd_profile)
     optin = phase_optin(args.optin_steps, optin_profile)
     single = phase_single(args.single_steps)
     baselines = phase_baselines(args.baseline_steps)
     checkpoint = phase_checkpoint(args.ckpt_steps)
+    cli = phase_cli(args.cli_f32_steps, args.cli_steps,
+                    f"{root}_cli{ext}" if args.profile else None)
     launches = {name: plus[name] + lmd[name] + optin[name] + single[name] + baselines[name]
-                + checkpoint[name] for name in kernels}
+                + checkpoint[name] + cli[name] for name in kernels}
     log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
         f"single-image methods {single}, baselines and solvers {baselines}, "
-        f"checkpoint path {checkpoint}")
+        f"checkpoint path {checkpoint}, CLI {cli}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -1614,7 +1989,13 @@ def main() -> None:
                    "lmdx_torch/csrc/flash_fwd_fusedheads.cu",
                    "lmdx/nn/pallas/flash_attention.py:622"),
                "pair_stats": ("lmdx_torch/csrc/pair_stats.cu",
-                              "lmdx/nn/pallas/group_norm.py:60")}
+                              "lmdx/nn/pallas/group_norm.py:60"),
+               "flash_attention_fwd_f32": ("lmdx_torch/csrc/attention_f32.cu",
+                                           "lmdx/nn/pallas/flash_attention.py:107"),
+               "flash_attention_bwd_f32": ("lmdx_torch/csrc/attention_f32.cu",
+                                           "lmdx/nn/pallas/flash_attention.py:384"),
+               "sam_attention_f32": ("lmdx_torch/csrc/attention_f32.cu",
+                                     "lmdx/nn/pallas/sam_attention.py:101")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -1630,9 +2011,11 @@ def main() -> None:
         f"for SAM, "
         f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
         f"for the fused-heads forward, {len(STAT_CASES) * n_opt} + {len(STAT_BWD_CASES)} "
-        f"for pair_stats); launches are those of the LMD+, LMD and opt-in LMD+ paths, "
-        f"the single-image methods, the baselines and solvers and the checkpoint path "
-        f"together")
+        f"for pair_stats, {3 * len(F32_FWD_CASES)} for the float32 forward, "
+        f"{3 * len(F32_BWD_CASES)} for the float32 backward, {len(F32_SAM_CASES)} for "
+        f"float32 SAM); launches are those of the LMD+, LMD and opt-in LMD+ paths, "
+        f"the single-image methods, the baselines and solvers, the checkpoint path and "
+        f"the CLI together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

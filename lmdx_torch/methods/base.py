@@ -1,7 +1,7 @@
 """Shared method-layer plumbing (port of the JAX package's methods/base.py):
-the result type, VAE decode and encode, negative-prompt handling, spec
-access and the GLIGEN inputs of a single image and of the batched per-box
-passes.
+the result type and its deferred images, VAE decode and encode,
+negative-prompt handling, spec access and the GLIGEN inputs of a single
+image and of the batched per-box passes.
 
 Every method module exposes `version` and `run(spec, bundle, ...)`
 returning a `GenerationResult` (methods/__init__.py registers them).
@@ -27,11 +27,57 @@ class GenerationResult:
     aux: dict = field(default_factory=dict)
 
 
+class DeferredImages:
+    """A batch of uint8 images left on the device, copied to the host once,
+    when first asked for.
+
+    `run_grounded_batch(defer_fetch=True)` ends with the decoded images still
+    on the device and hands every result an `ImageRef` into this object. A
+    caller launches the next batch's work first and only then resolves the
+    previous batch's images, so that the copy and the PNG encoding overlap
+    the card's work on the next batch (the images are the same either
+    way)."""
+
+    def __init__(self, device_images: torch.Tensor):
+        self._dev = device_images
+        self._host = None
+
+    def resolve(self) -> np.ndarray:
+        if self._host is None:
+            self._host = self._dev.cpu().numpy()
+            self._dev = None
+        return self._host
+
+
+class ImageRef:
+    """Index into a DeferredImages batch; `get()` resolves to (H, W, 3)."""
+
+    def __init__(self, batch: DeferredImages, index: int):
+        self._batch = batch
+        self._index = index
+
+    def get(self) -> np.ndarray:
+        return self._batch.resolve()[self._index]
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.get()
+        return arr.astype(dtype) if dtype is not None else arr
+
+
+def finalize_results(results) -> None:
+    """Resolve every deferred image in place (one copy per source batch).
+    Call after launching the next batch's work; a no-op on eager results."""
+    for r in results:
+        if isinstance(r.image, ImageRef):
+            r.image = r.image.get()
+
+
 @torch.no_grad()
-def decode_latents(bundle: ModelBundle, latents: torch.Tensor) -> np.ndarray:
-    """Latents (B, h, w, 4) -> uint8 images (B, H, W, 3) on the host."""
-    images = bundle.vae(latents.to(bundle.device))
-    return vaelib.to_uint8(images).cpu().numpy()
+def decode_latents(bundle: ModelBundle, latents: torch.Tensor, to_host: bool = True):
+    """Latents (B, h, w, 4) -> uint8 images (B, H, W, 3): a numpy array on
+    the host, or with `to_host=False` the uint8 tensor left on the device."""
+    images = vaelib.to_uint8(bundle.vae(latents.to(bundle.device)))
+    return images.cpu().numpy() if to_host else images
 
 
 @torch.no_grad()

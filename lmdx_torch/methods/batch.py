@@ -20,9 +20,24 @@ G prompts ride the pipeline together:
   GLIGEN grounding (LMD+) and batched CA-energy guidance with reference-CA
   transfer.
 
-Not ported: `defer_fetch`, the `pad_*_to` floors and the per-box batch
-bucketing (they bound XLA compiles), and device-mesh sharding (the identity
-without a mesh).
+`defer_fetch=True` leaves the final images on the device behind
+`base.ImageRef`s (`base.finalize_results` copies them), so that a caller can
+launch the next batch before it copies and saves this one.
+
+The compile-budget floors `pad_boxes_to`, `pad_objs_to` and
+`pad_positions_to`, and the per-box batch bucketing, change no real image in
+the JAX package: per-box pad rows duplicate the last box and are sliced away
+before anything a caller sees (no operation of the UNet or the guidance
+mixes rows, and the guidance loop's "any image above its threshold" test
+sees each duplicate's loss equal to its source's); floored object, box and
+position slots carry zero weights (`obj_valid`, `pos_valid`, `box_weight`
+0) and the loss divides by the real object count. Only the order of XLA's
+float sums can move with the padded shapes ("numerically equivalent, not
+bitwise", its docstring). They exist to bound XLA compiles, which an eager
+program does not have: the port checks them as the JAX package does
+(`pad_boxes_to` must hold the batch's boxes) and runs unpadded.
+
+Not ported: device-mesh sharding (the identity without a mesh).
 """
 
 from __future__ import annotations
@@ -48,7 +63,12 @@ from ._grounded import GroundedParams, _make_guidance_spec
 def run_grounded_batch(specs: list, bundle, p: GroundedParams,
                        bg_seeds: list[int] | None = None,
                        fg_seed_starts: list[int] | None = None,
-                       segmenter=None, return_so_images: bool = False):
+                       segmenter=None, return_so_images: bool = False,
+                       pad_boxes_to: int | None = None, pad_objs_to: int | None = None,
+                       pad_positions_to: int | None = None, defer_fetch: bool = False):
+    """One GenerationResult per spec (module docstring). The `pad_*_to`
+    floors are checked and change nothing here; `defer_fetch` leaves the
+    final images on the device behind `base.ImageRef`s."""
     cfg = bundle.config
     device = bundle.device
     H, W = cfg.latent_height, cfg.latent_width
@@ -98,6 +118,8 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
     # ---- ONE batched per-box pass over every box of every image ----------
     flat = [(gi, item) for gi, im in enumerate(images) for item in im["so_list"]]
     n_boxes = len(flat)
+    if pad_boxes_to is not None and n_boxes and pad_boxes_to < n_boxes:
+        raise ValueError(f"pad_boxes_to {pad_boxes_to} < the batch's {n_boxes} boxes")
     save_keys = (tuple(dict.fromkeys((p.obj_attn_key, *p.guidance_attn_keys)))
                  if p.use_ref_ca else (p.obj_attn_key,))
     fuser_steps = (int(p.so_gligen_scheduled_sampling_beta * so_schedule.num_steps)
@@ -301,10 +323,11 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
         frozen_mask=torch.from_numpy((fg_batched != 0).astype(np.float32)).to(device),
         frozen_latents=frozen_latents, num_frozen_steps=frozen_steps,
         solver=p.scheduler)
-    final_images = base.decode_latents(bundle, out.latents)
+    final_images = base.decode_latents(bundle, out.latents, to_host=not defer_fetch)
+    deferred = base.DeferredImages(final_images) if defer_fetch else None
 
     return [base.GenerationResult(
-        image=final_images[gi],
+        image=base.ImageRef(deferred, gi) if defer_fetch else final_images[gi],
         so_img_list=([so_images[i] for i in aux["so_image_ids"]]
                      if return_so_images else []),
         aux={"frozen_mask": aux["frozen_mask"],
@@ -456,10 +479,13 @@ def run_lmd_batch(specs, bundle, segmenter=None, **overrides):
     bg_seeds = overrides.pop("bg_seeds", None)
     fg_seed_starts = overrides.pop("fg_seed_starts", None)
     return_so_images = overrides.pop("return_so_images", False)
+    batch_kw = {k: overrides.pop(k, None) for k in
+                ("pad_boxes_to", "pad_objs_to", "pad_positions_to")}
+    batch_kw["defer_fetch"] = overrides.pop("defer_fetch", False)
     params = GroundedParams(**{**defaults, **overrides})
     return run_grounded_batch(specs, bundle, params, bg_seeds=bg_seeds,
                               fg_seed_starts=fg_seed_starts, segmenter=segmenter,
-                              return_so_images=return_so_images)
+                              return_so_images=return_so_images, **batch_kw)
 
 
 def run_lmd_plus_batch(specs, bundle, segmenter=None, **overrides):
@@ -481,7 +507,10 @@ def run_lmd_plus_batch(specs, bundle, segmenter=None, **overrides):
     bg_seeds = overrides.pop("bg_seeds", None)
     fg_seed_starts = overrides.pop("fg_seed_starts", None)
     return_so_images = overrides.pop("return_so_images", False)
+    batch_kw = {k: overrides.pop(k, None) for k in
+                ("pad_boxes_to", "pad_objs_to", "pad_positions_to")}
+    batch_kw["defer_fetch"] = overrides.pop("defer_fetch", False)
     params = GroundedParams(**{**defaults, **overrides})
     return run_grounded_batch(specs, bundle, params, bg_seeds=bg_seeds,
                               fg_seed_starts=fg_seed_starts, segmenter=segmenter,
-                              return_so_images=return_so_images)
+                              return_so_images=return_so_images, **batch_kw)

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_fwd", "flash_bwd", "sam_attention", "flash_fwd_packed",
-           "flash_fwd_fusedheads", "pair_stats")
+           "flash_fwd_fusedheads", "pair_stats", "attention_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

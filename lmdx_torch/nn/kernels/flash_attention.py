@@ -4,13 +4,16 @@ nn/pallas/flash_attention.py: `_pallas_attention`, `_pallas_attention_bwd`,
 `_flash_attention_ad`, `_fusedheads_ad`, `flash_attention`,
 `flash_attention_hd`, `_kernel_supported`, `_fusedheads_supported`).
 
-Four hand-written CUDA kernels for Hopper (`lmdx_torch/csrc/flash_fwd.cu`,
-`flash_bwd.cu`, `flash_fwd_packed.cu`, `flash_fwd_fusedheads.cu`; their
-sources say what bounds them and how they are built) sit behind four
+Hand-written CUDA kernels for Hopper (`lmdx_torch/csrc/flash_fwd.cu`,
+`flash_bwd.cu`, `flash_fwd_packed.cu`, `flash_fwd_fusedheads.cu` for bf16;
+`attention_f32.cu` for the float32 forms of the forward and the backward;
+their sources say what bounds them and how they are built) sit behind four
 wrappers, each with its plain PyTorch version beside it:
 
-- `flash_attention_fwd(q, k, v) -> (o, lse)` on (B, heads, L, head_dim)
-- `flash_attention_bwd(q, k, v, lse, o, do) -> (dq, dk, dv)`
+- `flash_attention_fwd(q, k, v) -> (o, lse)` on (B, heads, L, head_dim),
+  bf16 or float32 (q's dtype chooses the kernel; k and v must match it)
+- `flash_attention_bwd(q, k, v, lse, o, do) -> (dq, dk, dv)`, bf16 or
+  float32 likewise
 - `flash_attention_fwd_packed(q, k, v) -> (o, lse)`: the same function from
   the reference's start values (row max -1e30, denominator clamped at
   1e-30); its plain version takes the heads in groups of
@@ -19,14 +22,18 @@ wrappers, each with its plain PyTorch version beside it:
   projection layout (B, L, heads * head_dim), lse (B, heads, Lq)
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
-launches its kernel or raises. `FlashAttention` and `FusedHeadsAttention` wire
+launches its kernel or raises. The packed and fused-heads kernels take bf16
+only (their float32 forms are still to port: ROADMAP.md, section 2).
+`FlashAttention` and `FusedHeadsAttention` wire
 them into autograd, as `jax.custom_vjp` does on the JAX side; both take their
 gradient from `flash_attention_bwd` (the fused-heads one after a head split).
 `attention_fwd_tiled_plain` repeats, step by step, the arithmetic of the
 forward body that the three forward kernels and SAM's share
 (`csrc/attention_fwd.cuh`), and `attention_bwd_tiled_plain` that of the
 backward's two kernels (`csrc/flash_bwd.cu`); the CPU tests hold them against
-the plain versions.
+the plain versions. At float32 inputs they round nothing and are the
+arithmetic of the float32 kernels (`csrc/attention_f32.cuh`), which walk the
+same tiles.
 
 Dispatch (the attention layers call it for their untapped attentions):
 
@@ -54,7 +61,8 @@ from . import build as buildlib
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one exactly where it launches its kernel.
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "flash_attention_fwd_packed": 0, "flash_attention_fwd_fusedheads": 0}
+            "flash_attention_fwd_packed": 0, "flash_attention_fwd_fusedheads": 0,
+            "flash_attention_fwd_f32": 0, "flash_attention_bwd_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -94,7 +102,9 @@ def attention_fwd_tiled_plain(q, k, v, rel_pos=None, m_init=float("-inf"), l_min
     (B, h, Lq, gh) and (B, h, Lq, gw) with Lk = gh * gw, added unscaled in
     f32 (times log2(e), as every score). `(-inf, 0)` is the plain softmax;
     the head-packed kernel runs `(-1e30, 1e-30)`. q: (B, h, Lq, d), k/v:
-    (B, h, Lk, d). The kernels are held to the one-pass plain versions; this
+    (B, h, Lk, d). At float32 inputs nothing is rounded: this is then the
+    float32 body's (`csrc/attention_f32.cuh`) arithmetic from `(-inf, 0)`,
+    bias included. The kernels are held to the one-pass plain versions; this
     one shows on the CPU that the body's steps give the same function."""
     lk, d = k.shape[2], q.shape[-1]
     scale_log2 = d ** -0.5 * _LOG2E
@@ -231,8 +241,12 @@ def attention_bwd_tiled_plain(q, k, v, lse, o, do):
     64-row KV tiles (the dQ kernel's walk); the outputs rounded once. q:
     (B, h, Lq, d), k/v: (B, h, Lk, d), lse (B, h, Lq). The kernel's masks (p =
     0 for keys >= Lk and q rows >= Lq) have no counterpart here: the tensors
-    have no such rows. The kernel is held to `attention_bwd_plain`; this one
-    shows on the CPU that its steps give the same function."""
+    have no such rows. At float32 inputs nothing is rounded: this is then the
+    float32 backward's (`csrc/attention_f32.cuh`) arithmetic, whose dQ
+    kernel walks 64-row KV tiles and whose dK/dV kernel walks q in the same
+    steps of `bwd_q_step(d)` rows. The kernels are held to
+    `attention_bwd_plain`; this one shows on the CPU that their steps give
+    the same function."""
     lq, lk, d = q.shape[2], k.shape[2], q.shape[-1]
     scale = d ** -0.5
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
@@ -296,6 +310,30 @@ def _bwd_lib():
     return fn
 
 
+def _fwd_f32_lib():
+    fn = buildlib.library("attention_f32").lmdx_flash_fwd_f32
+    if fn.argtypes is None:
+        fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_PTR]
+        fn.restype = _INT
+    return fn
+
+
+def _bwd_f32_lib():
+    fn = buildlib.library("attention_f32").lmdx_flash_bwd_f32
+    if fn.argtypes is None:
+        fn.argtypes = [_PTR] * 10 + [_INT] * 4 + [_PTR]
+        fn.restype = _INT
+    return fn
+
+
+# The per-head kernels by q's dtype: (forward, backward, LAUNCHES keys).
+_KERNELS = {torch.bfloat16: (_fwd_lib, _bwd_lib, "flash_attention_fwd", "flash_attention_bwd"),
+            torch.float32: (_fwd_f32_lib, _bwd_f32_lib, "flash_attention_fwd_f32",
+                            "flash_attention_bwd_f32")}
+_BF16_ONLY = ("takes bfloat16 only: its float32 form is still to port "
+              "(ROADMAP.md, section 2)")
+
+
 def _check_cuda(named: dict, like: torch.Tensor, dtype) -> None:
     for name, t in named.items():
         if t.device != like.device:
@@ -307,6 +345,11 @@ def _check_cuda(named: dict, like: torch.Tensor, dtype) -> None:
 
 
 def _check_qkv(q, k, v) -> tuple[int, int, int, int, int]:
+    """Shapes of (B, heads, L, head_dim) q, k, v on one device, all bf16 or
+    all float32, contiguous; returns (B, heads, Lq, Lk, head_dim)."""
+    if q.dtype not in _KERNELS:
+        raise ValueError(f"q has dtype {q.dtype}; the kernels take torch.bfloat16 or "
+                         "torch.float32")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, heads, L, head_dim)")
     b, h, lq, d = q.shape
@@ -316,7 +359,7 @@ def _check_qkv(q, k, v) -> tuple[int, int, int, int, int]:
                          f"v {tuple(v.shape)}")
     if d > 256 or b * h > 65535:
         raise ValueError(f"head_dim {d} / batch*heads {b * h} outside the kernel")
-    _check_cuda({"q": q, "k": k, "v": v}, q, torch.bfloat16)
+    _check_cuda({"q": q, "k": k, "v": v}, q, q.dtype)
     return b, h, lq, lk, d
 
 
@@ -324,19 +367,29 @@ def _stream(t: torch.Tensor) -> _PTR:
     return _PTR(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _check_cpu_dtypes(named: dict) -> None:
+    """The CPU path takes what the card does: one dtype for all of `named`."""
+    dtypes = {t.dtype for t in named.values()}
+    if len(dtypes) != 1:
+        raise ValueError("mixed dtypes " + ", ".join(f"{n} {t.dtype}" for n, t in named.items()))
+
+
 def flash_attention_fwd(q, k, v):
-    """(o, lse) of attention; the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """(o, lse) of attention; for CUDA tensors the kernel of q's dtype (bf16:
+    `csrc/flash_fwd.cu`; float32: `csrc/attention_f32.cu`), for CPU tensors
+    the plain version. k and v must have q's dtype."""
     if q.device.type == "cpu":
+        _check_cpu_dtypes({"q": q, "k": k, "v": v})
         return attention_fwd_plain(q, k, v)
     b, h, lq, lk, d = _check_qkv(q, k, v)
+    fwd_lib, _, key, _ = _KERNELS[q.dtype]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
-    rc = _fwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    lse.data_ptr(), b * h, lq, lk, d, _stream(q))
+    rc = fwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   lse.data_ptr(), b * h, lq, lk, d, _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
-    LAUNCHES["flash_attention_fwd"] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
+    LAUNCHES[key] += 1
     return o, lse
 
 
@@ -346,6 +399,9 @@ def flash_attention_fwd_packed(q, k, v):
     (heads in groups of `head_pack(head_dim)`) for CPU tensors."""
     if q.device.type == "cpu":
         return attention_fwd_packed_plain(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_fwd_packed got {q.dtype}: the packed kernel "
+                         + _BF16_ONLY)
     b, h, lq, lk, d = _check_qkv(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
@@ -371,6 +427,9 @@ def flash_attention_fwd_fusedheads(qf, kf, vf, heads: int):
                          f"vf {tuple(vf.shape)}")
     if hd % heads or hd // heads > 256 or b > 65535 or heads > 65535:
         raise ValueError(f"width {hd} / heads {heads} / batch {b} outside the kernel")
+    if qf.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_fwd_fusedheads got {qf.dtype}: the fused-heads "
+                         "kernel " + _BF16_ONLY)
     _check_cuda({"qf": qf, "kf": kf, "vf": vf}, qf, torch.bfloat16)
     o = torch.empty_like(qf)
     lse = torch.empty((b, heads, lq), device=qf.device, dtype=torch.float32)
@@ -383,12 +442,16 @@ def flash_attention_fwd_fusedheads(qf, kf, vf, heads: int):
 
 
 def flash_attention_bwd(q, k, v, lse, o, do):
-    """(dq, dk, dv) of attention from the forward's lse and o; the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    """(dq, dk, dv) of attention from the forward's lse and o; for CUDA tensors
+    the kernels of q's dtype (bf16: `csrc/flash_bwd.cu`; float32:
+    `csrc/attention_f32.cu`), for CPU tensors the plain version. k, v, o and
+    do must have q's dtype, lse is float32."""
     if q.device.type == "cpu":
+        _check_cpu_dtypes({"q": q, "k": k, "v": v, "o": o, "do": do})
         return attention_bwd_plain(q, k, v, lse, o, do)
     b, h, lq, lk, d = _check_qkv(q, k, v)
-    _check_cuda({"o": o, "do": do}, q, torch.bfloat16)
+    _, bwd_lib, _, key = _KERNELS[q.dtype]
+    _check_cuda({"o": o, "do": do}, q, q.dtype)
     _check_cuda({"lse": lse}, q, torch.float32)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, lq):
         raise ValueError("o/do must match q and lse must be (B, heads, Lq)")
@@ -396,13 +459,13 @@ def flash_attention_bwd(q, k, v, lse, o, do):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
-    rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    b * h, lq, lk, d, _stream(q))
+    rc = bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   b * h, lq, lk, d, _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_bwd launch failed: CUDA error {rc}")
-    LAUNCHES["flash_attention_bwd"] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
+    LAUNCHES[key] += 1
     return dq, dk, dv
 
 

@@ -2,15 +2,17 @@
 JAX package's nn/pallas/sam_attention.py: `xla_sam_attention`,
 `_pallas_sam_attention`, `_kernel_supported`).
 
-One hand-written CUDA kernel for Hopper (`lmdx_torch/csrc/sam_attention.cu`;
-its source says what bounds it) sits behind the wrapper, with its plain
+Two hand-written CUDA kernels for Hopper, one per dtype of q, k and v
+(`lmdx_torch/csrc/sam_attention.cu` for bf16, `attention_f32.cu` for float32;
+their sources say what bounds them), sit behind the wrapper, with its plain
 PyTorch version beside it:
 
 - `sam_attention(q, k, v, bias_h, bias_w) -> o`
 
 computes softmax(q k^T / sqrt(d) + bias_h[q, k // gw] + bias_w[q, k % gw]) v
 over (B, H, N, d) tensors with N = gh * gw tokens in row-major (kh, kw)
-order; the bias is added unscaled (ViTDet / SAM). Given CPU tensors the
+order; the bias is added unscaled (ViTDet / SAM) and is float32 in both
+forms. Given CPU tensors the
 wrapper computes the plain version; given CUDA tensors it launches the
 kernel or raises. Forward only: SAM runs under no_grad on every path.
 """
@@ -25,7 +27,7 @@ from . import build as buildlib
 
 # Launches of the kernel since the last reset_launch_counts(); the wrapper
 # adds one exactly where it launches it.
-LAUNCHES = {"sam_attention": 0}
+LAUNCHES = {"sam_attention": 0, "sam_attention_f32": 0}
 
 _MIN_TOKENS = 196  # the 14x14 windows of SAM ViT; smaller grids take plain math
 
@@ -62,12 +64,17 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _lib():
-    fn = buildlib.library("sam_attention").lmdx_sam_attention
+def _lib(dtype):
+    """The C entry point for q's dtype, and its LAUNCHES key."""
+    source, symbol, key = {
+        torch.bfloat16: ("sam_attention", "lmdx_sam_attention", "sam_attention"),
+        torch.float32: ("attention_f32", "lmdx_sam_attention_f32", "sam_attention_f32"),
+    }[dtype]
+    fn = getattr(buildlib.library(source), symbol)
     if fn.argtypes is None:
         fn.argtypes = [_PTR] * 6 + [_INT] * 5 + [_PTR]
         fn.restype = _INT
-    return fn
+    return fn, key
 
 
 def _check(q, k, v, bias_h, bias_w) -> tuple[int, int, int, int, int, int]:
@@ -83,8 +90,11 @@ def _check(q, k, v, bias_h, bias_w) -> tuple[int, int, int, int, int, int]:
     if n != gh * gw or d > 128 or d % 8 or b * h > 65535:
         raise ValueError(f"N={n} grid {gh}x{gw} head_dim {d} batch*heads {b * h} "
                          "outside the kernel")
-    for name, t, dtype in (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
-                           ("v", v, torch.bfloat16), ("bias_h", bias_h, torch.float32),
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q has dtype {q.dtype}; the kernel takes torch.bfloat16 or "
+                         "torch.float32")
+    for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype),
+                           ("v", v, q.dtype), ("bias_h", bias_h, torch.float32),
                            ("bias_w", bias_w, torch.float32)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
@@ -96,17 +106,21 @@ def _check(q, k, v, bias_h, bias_w) -> tuple[int, int, int, int, int, int]:
 
 
 def sam_attention(q, k, v, bias_h, bias_w):
-    """SAM attention with the decomposed rel-pos bias; the CUDA kernel for
-    CUDA tensors (q, k, v bf16, biases f32, all contiguous), the plain
-    version for CPU tensors."""
+    """SAM attention with the decomposed rel-pos bias; for CUDA tensors the
+    kernel of q's dtype (q, k, v all bf16 or all float32, biases float32, all
+    contiguous), for CPU tensors the plain version (q, k and v of one
+    dtype)."""
     if q.device.type == "cpu":
+        if not q.dtype == k.dtype == v.dtype:
+            raise ValueError(f"mixed dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}")
         return sam_attention_plain(q, k, v, bias_h, bias_w)
     b, h, n, d, gh, gw = _check(q, k, v, bias_h, bias_w)
+    fn, key = _lib(q.dtype)
     o = torch.empty_like(q)
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(),
-                bias_w.data_ptr(), o.data_ptr(), b * h, n, d, gh, gw,
-                _PTR(torch.cuda.current_stream(q.device).cuda_stream))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(),
+            bias_w.data_ptr(), o.data_ptr(), b * h, n, d, gh, gw,
+            _PTR(torch.cuda.current_stream(q.device).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"sam_attention launch failed: CUDA error {rc}")
-    LAUNCHES["sam_attention"] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
+    LAUNCHES[key] += 1
     return o

@@ -188,20 +188,29 @@ def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
     LMDX_ALLOW_WORD_TOKENIZER is set.
     dtype: compute-dtype override ("bfloat16", "float32"): "float32" is the
     reference's no-autocast precision, the one published for training-free
-    LMD. On a card only bfloat16 runs: the CUDA attention kernels are
-    instantiated for it alone, so any other dtype there is refused here,
-    before the load, not in the middle of a run."""
+    LMD. On a card the attention kernels exist for bfloat16 and float32
+    (kernels 1, 2 and 5); the head-packed and fused-heads kernels
+    (`kernels.packed_attention`, `kernels.fused_heads`) for bfloat16 only.
+    Any other dtype there, and float32 with either of those options, is
+    refused here, before the load, not in the middle of a run."""
     config = SD_CONFIGS[model_key]()
     if dtype is not None:
         config = dataclasses.replace(config, dtype=dtype)
     device = resolve_device(device)
-    if device.type == "cuda" and config.torch_dtype() != torch.bfloat16:
-        raise ValueError(
-            f"dtype {config.dtype} on {device}: the port's CUDA attention kernels are "
-            f"instantiated for bfloat16 only, and their float32 instantiations are "
-            f"not written yet (kernel 1, the flash forward, csrc/flash_fwd.cu; "
-            f"kernel 2, its backward, csrc/flash_bwd.cu; kernel 5, SAM attention, "
-            f"csrc/sam_attention.cu); run float32 with device='cpu'")
+    if device.type == "cuda":
+        torch_dtype = config.torch_dtype()
+        if torch_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(
+                f"dtype {config.dtype} on {device}: the port's CUDA attention kernels "
+                f"take bfloat16 or float32; run {config.dtype} with device='cpu'")
+        bf16_only = [name for name in ("packed_attention", "fused_heads")
+                     if kernels is not None and getattr(kernels, name)]
+        if torch_dtype == torch.float32 and bf16_only:
+            raise ValueError(
+                f"dtype float32 on {device} with KernelOptions {bf16_only}: the head-packed "
+                f"(kernel 3, csrc/flash_fwd_packed.cu) and fused-heads (kernel 4, "
+                f"csrc/flash_fwd_fusedheads.cu) kernels take bfloat16 only; their float32 "
+                f"forms are still to port (ROADMAP.md, section 2)")
     if checkpoint_dir is None:
         root = os.environ.get("LMDX_CHECKPOINT_DIR", "")
         candidate = os.path.join(root, model_key.replace("/", "--")) if root else ""

@@ -89,3 +89,23 @@ def test_tiled_backward_matches_pallas_interpret(lq, lk, d):
         torch.tensor(np.asarray(o)), torch.from_numpy(g))
     for g_, w_ in zip(got, want):
         np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=TOL_PALLAS, atol=TOL_PALLAS)
+
+
+# The float32 backward (lmdx_torch/csrc/attention_f32.cuh): its dQ kernel
+# walks 64-row KV tiles, its dK/dV kernel q in steps of `bwd_q_step(d)` rows,
+# and it rounds nothing, so at float32 inputs `attention_bwd_tiled_plain` is
+# its arithmetic. Held to the Pallas backward in interpret mode at float32
+# at the UNet's head dims with the fuser's L + 30 keys (40, 80: 64-row steps;
+# 160: 32-row steps).
+@pytest.mark.parametrize("lq,lk,d", [(64, 94, 40), (100, 130, 80), (96, 126, 160)])
+def test_float32_backward_matches_pallas_interpret_at_float32(lq, lk, d):
+    q, k, v, g = _qkvg(lq, lk, d, seed=6)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    o, lse = jfa._pallas_attention(jq, jk, jv, interpret=True, return_lse=True)
+    want = jfa._pallas_attention_bwd(jq, jk, jv, lse, o, jg, interpret=True)
+    got = fa.attention_bwd_tiled_plain(
+        *map(torch.from_numpy, (q, k, v)), torch.tensor(np.asarray(lse)),
+        torch.tensor(np.asarray(o)), torch.from_numpy(g))
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=TOL_PALLAS, atol=TOL_PALLAS)

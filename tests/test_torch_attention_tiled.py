@@ -145,3 +145,25 @@ def test_ptxas_report_names_kernels_and_spills():
     assert ptxas_report(log) == [
         {"kernel": "flash_fwd_kernel<160,8>", "registers": 238, "spill_bytes": 64},
         {"kernel": "flash_bwd_delta_kernel", "registers": 12, "spill_bytes": 0}]
+
+
+# The float32 body (lmdx_torch/csrc/attention_f32.cuh) walks the same 64-row
+# KV tiles from (-inf, 0) and rounds nothing: at float32 inputs
+# `attention_fwd_tiled_plain` is its arithmetic step by step. Held to the
+# Pallas kernel in interpret mode at float32, at the head dims of the UNet's
+# levels (40, 80, 160) and SAM's (64), with the GLIGEN fuser's unaligned
+# L + 30 keys; O to 1e-5 * max|Pallas|, the LSE to 1e-4 (the card's float32
+# tolerance).
+F32_CASES = [(256, 286, 40), (64, 94, 80), (100, 130, 160), (196, 196, 64)]
+
+
+@pytest.mark.parametrize("lq,lk,d", F32_CASES)
+def test_float32_body_matches_pallas_interpret_at_float32(lq, lk, d):
+    q, k, v = _qkv(lq, lk, d, seed=5)
+    o_ref, lse_ref = jfa._pallas_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          interpret=True, return_lse=True)
+    assert o_ref.dtype == jnp.float32
+    o, lse = fa.attention_fwd_tiled_plain(*map(torch.from_numpy, (q, k, v)))
+    assert o.dtype == torch.float32
+    _assert_close(o, torch.tensor(np.asarray(o_ref)), TOL_O[torch.float32])
+    assert np.abs(lse.numpy() - np.asarray(lse_ref)).max() <= 1e-4

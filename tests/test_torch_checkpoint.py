@@ -460,13 +460,21 @@ def test_sam_checkpoint_is_discovered_like_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
 def test_non_bf16_on_cuda_is_refused_at_load(dtype, tmp_path):
-    """The CUDA kernels are bf16 only: the load refuses before reading
-    (tmp_path holds no weights), and the message names kernels 1, 2 and 5."""
-    with pytest.raises(ValueError, match="float32 instantiations") as err:
+    """What the CUDA kernels do not take is refused before reading (tmp_path
+    holds no weights): float16 (kernels 1, 2 and 5 take bf16 and float32),
+    and float32 with the bf16-only options, whose message names kernels 3
+    and 4. Float32 alone passes the gate (and then meets the missing
+    tokenizer)."""
+    kernels = tconfig.KernelOptions(packed_attention=True, fused_heads=True)
+    with pytest.raises(ValueError, match="bfloat16") as err:
         tmodels.load_bundle("runwayml/stable-diffusion-v1-5", str(tmp_path), dtype=dtype,
-                            device="cuda")
-    for source in ("flash_fwd.cu", "flash_bwd.cu", "sam_attention.cu"):
-        assert source in str(err.value)
+                            device="cuda", kernels=kernels if dtype == "float32" else None)
+    if dtype == "float32":
+        for source in ("flash_fwd_packed.cu", "flash_fwd_fusedheads.cu"):
+            assert source in str(err.value)
+        with pytest.raises(ValueError, match="tokenizer"):
+            tmodels.load_bundle("runwayml/stable-diffusion-v1-5", str(tmp_path), dtype=dtype,
+                                device="cuda")
 
 
 # ---- (e) production shapes on the meta device -----------------------------------

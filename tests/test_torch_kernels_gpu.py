@@ -12,6 +12,10 @@ and write bf16 outputs, the plain versions compute in f32 from the same bf16
 inputs. Each output is held to max|kernel - plain| <= 2e-2 * max|plain|
 (a few bf16 ulps of the largest entry); the f32 LSE to 1e-3 absolute; the
 f32 sums of pair_stats to 1e-3 * max|plain| (f32 sums in another order).
+The float32 forms of the flash forward, its backward and SAM attention
+(`csrc/attention_f32.cu`) keep everything in float32: each output within
+1e-4 * max|plain| and the LSE within 1e-4 (f32 sums in another order and
+ex2.approx for exp; TF32 off for the plain versions' products).
 """
 
 import numpy as np
@@ -54,12 +58,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(bh, lq, lk, d, device, seed=0):
+@pytest.fixture
+def no_tf32(cuda):
+    """Full float32 products for the plain versions the float32 kernels are
+    held to."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _inputs(bh, lq, lk, d, device, seed=0, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
 
     def mk(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
-            device=device, dtype=torch.bfloat16)
+            device=device, dtype=dtype)
 
     return mk(1, bh, lq, d), mk(1, bh, lk, d), mk(1, bh, lk, d), mk(1, bh, lq, d)
 
@@ -213,10 +227,13 @@ def test_wrapper_counts_and_rejects(cuda):
     fa.flash_attention_fwd(q, k, v)
     assert fa.LAUNCHES["flash_attention_fwd"] == 1
     with pytest.raises(ValueError):
-        fa.flash_attention_fwd(q.float(), k.float(), v.float())
+        fa.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q.float(), k, v)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
     assert fa.LAUNCHES["flash_attention_fwd"] == 1
+    assert fa.LAUNCHES["flash_attention_fwd_f32"] == 0
 
 
 SAM_SHAPES = [
@@ -436,3 +453,128 @@ def test_new_wrappers_count_and_reject(cuda):
     with pytest.raises(ValueError):
         gn.pair_stats(a.transpose(1, 2), a.transpose(1, 2))
     assert gn.LAUNCHES["pair_stats"] == 0
+
+
+# ---- the float32 forms (csrc/attention_f32.cu) ---------------------------------
+
+F32_SHAPES = [
+    # (batch*heads, Lq, Lk, d): the shapes float32 LMD gives the kernels at
+    # 512x512 (chip_smoke.py phase 9: per-box pass of a 3-box layout 3 x CFG x
+    # 8 heads, its guidance 3 x 8, overall guidance 8) and the fuser's L + 30
+    (48, 4096, 4096, 40),
+    (24, 4096, 4096, 40),
+    (8, 4096, 4126, 40),
+    (24, 1024, 1024, 80),
+    (8, 1024, 1054, 80),
+    (24, 256, 256, 160),
+    (8, 256, 286, 160),
+    (2, 100, 300, 32),      # ragged q and kv tails
+    (3, 100, 300, 20),      # head dim not a multiple of 8
+    (4, 8, 300, 40),        # Lq = 8
+    (4, 100, 30, 40),       # KV shorter than one tile
+    (2, 130, 200, 256),     # the widest instantiation: 32-row q steps
+    (2, 130, 200, 96),      # head dim between two instantiated widths
+]
+
+
+def _close_f32(got, want):
+    assert got.dtype == torch.float32
+    _close(got, want, rel=1e-4)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", F32_SHAPES)
+def test_f32_forward_matches_plain(no_tf32, bh, lq, lk, d):
+    q, k, v, _ = _inputs(bh, lq, lk, d, no_tf32, seed=20, dtype=torch.float32)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd_f32"] == 1 and fa.LAUNCHES["flash_attention_fwd"] == 0
+    _close_f32(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", F32_SHAPES)
+def test_f32_backward_matches_plain(no_tf32, bh, lq, lk, d):
+    q, k, v, do = _inputs(bh, lq, lk, d, no_tf32, seed=21, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    fa.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    want = fa.attention_bwd_plain(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd_f32"] == 1 and fa.LAUNCHES["flash_attention_bwd"] == 0
+    for g, w in zip(got, want):
+        _close_f32(g, w)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(8, 4096, 4126, 40), (16, 256, 286, 160)])
+def test_f32_kernels_are_bit_equal_from_run_to_run(cuda, bh, lq, lk, d):
+    q, k, v, do = _inputs(bh, lq, lk, d, cuda, seed=22, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v)
+    first, second = (fa.flash_attention_bwd(q, k, v, lse, o, do) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_f32_autograd_runs_the_f32_kernels(no_tf32):
+    """FlashAttention at float32: the forward and its gradient on the float32
+    kernels, the gradient equal to autograd through the plain version."""
+    q, k, v, do = _inputs(8, 256, 286, 40, no_tf32, seed=23, dtype=torch.float32)
+    q, k, v = (t.reshape(1, 8, -1, 40).requires_grad_() for t in (q, k, v))
+    fa.reset_launch_counts()
+    fa.flash_attention(q, k, v).backward(do.reshape(1, 8, -1, 40))
+    assert fa.LAUNCHES["flash_attention_fwd_f32"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd_f32"] == 1
+    assert fa.LAUNCHES["flash_attention_fwd"] == fa.LAUNCHES["flash_attention_bwd"] == 0
+    got = [t.grad for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    o_ref, _ = fa.attention_fwd_plain(q, k, v)
+    o_ref.backward(do.reshape(1, 8, -1, 40))
+    for g, t in zip(got, (q, k, v)):
+        _close_f32(g, t.grad)
+
+
+F32_SAM_SHAPES = [
+    (12, 64, 64, 64),       # one float32 image: global layers, 12 heads
+    (300, 14, 14, 64),      # one float32 image: 25 windows x 12 heads
+    (6, 16, 13, 32),        # non-square grid
+    (2, 7, 30, 32),         # two keys in the last tile
+    (2, 4, 4, 128),         # the widest head the kernel takes
+]
+
+
+@pytest.mark.parametrize("bh,gh,gw,d", F32_SAM_SHAPES)
+def test_f32_sam_attention_matches_plain(no_tf32, bh, gh, gw, d):
+    q, k, v, bias_h, bias_w = _sam_inputs(bh, gh, gw, d, no_tf32, seed=24)
+    q, k, v = q.float(), k.float(), v.float()
+    sa.reset_launch_counts()
+    got = sa.sam_attention(q, k, v, bias_h, bias_w)
+    want = sa.sam_attention_plain(q, k, v, bias_h, bias_w)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES == {"sam_attention": 0, "sam_attention_f32": 1}
+    _close_f32(got, want)
+
+
+def test_f32_wrappers_reject_mixed_and_other_dtypes(cuda):
+    q, k, v, do = _inputs(2, 64, 256, 40, cuda, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    fa.reset_launch_counts()
+    for args in ((q, k.bfloat16(), v), (q.half(), k.half(), v.half())):
+        with pytest.raises(ValueError):
+            fa.flash_attention_fwd(*args)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, lse, o, do.bfloat16())
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd_packed(q.reshape(1, 2, 64, 40), k.reshape(1, 2, 256, 40),
+                                      v.reshape(1, 2, 256, 40))
+    assert all(n == 0 for n in fa.LAUNCHES.values())
+    sq, sk, sv, bh_, bw_ = _sam_inputs(2, 14, 14, 64, cuda)
+    sa.reset_launch_counts()
+    with pytest.raises(ValueError):
+        sa.sam_attention(sq.float(), sk, sv.float(), bh_, bw_)
+    with pytest.raises(ValueError):
+        sa.sam_attention(sq.half(), sk.half(), sv.half(), bh_, bw_)
+    assert all(n == 0 for n in sa.LAUNCHES.values())

@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py [--steps N] [--lmd-steps N] [--optin-steps N]
                           [--single-steps N] [--baseline-steps N] [--ckpt-steps N]
-                          [--cli-f32-steps N] [--cli-steps N] [--profile PATH]
+                          [--cli-f32-steps N] [--cli-steps N] [--optin-f32-steps N]
+                          [--profile PATH]
 
-Nine phases; any failure exits nonzero before the final line is printed.
-Phases 3-7 and 9 run on random weights (LMDX_CHECKPOINT_DIR is unset for
-them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM.
+Ten phases; any failure exits nonzero before the final line is printed.
+Phases 3-7, 9 and 10 run on random weights (LMDX_CHECKPOINT_DIR is unset for
+them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
+10 a fabricated OWL-ViT.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    seven), one nvcc per source, all started together, into build/kernels/,
    and prints each kernel's registers and spilled bytes (`ptxas -v`). Fails
    if an attention kernel (the forward body's four kernels, the backward's
-   two, and the float32 body's four) instantiated for a head dim the paths
+   two, and the float32 body's six) instantiated for a head dim the paths
    use (48, 64, 80, 160) spills.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes. Flash attention: 8 heads; (L, head_dim) =
@@ -59,6 +61,16 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM.
    forward (batch 2), held to 1e-3 * max|plain| (f32 sums in another
    order), bound by bytes, library = `a.sum(-1)` with `(a * b).sum(-1)`
    (two calls).
+   The float32 forms of kernels 3 and 4 (`csrc/attention_f32.cu`) at every
+   shape and batch phase 10 gives them (F32_PACKED_LEVELS, F32_FUSED_CASES;
+   batch 8/4/2): at float32 the fused-heads size rule refuses the 1024-token
+   self and fuser attention, so the packed kernel serves (4096, 40) and
+   (1024, 80), KV = L and L + 30, and must equal kernel 1-f32 bit for bit;
+   the fused-heads kernel the rest. Kernel 2-f32 at the gradient shapes that
+   path adds (F32_OPTIN_BWD, batch 2), `pair_stats` on float32 (x, x) at
+   every GroupNorm of the UNet (batch 8/4/2). Tolerances, bound and library
+   as for the float32 kernels above (SDPA at float32 on strided views for
+   the fused-heads forward).
 3. LMD+ path: `run_lmd_plus_batch` on the full-width SD1.4+GLIGEN bundle
    (random weights from seed 0), 512x512, DDIM, CFG 7.5, frozen ratio 0.5,
    GLIGEN beta 0.4, CA-energy guidance with reference-CA transfer, the
@@ -114,9 +126,9 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM.
    (`lmdx_torch.runtime.fabricate`, 2.43B values, ~4.9 GB) into a temporary
    directory, removed at the end; checks that `validate_checkpoint` is clean
    for both, that `load_bundle` refuses the checkpoint without a tokenizer
-   (and loads it with LMDX_ALLOW_WORD_TOKENIZER=1, set for this phase only)
-   and refuses dtype float32 with the bf16-only options (kernels 3 and 4)
-   on the card at load time; takes the template's
+   (and loads it with LMDX_ALLOW_WORD_TOKENIZER=1, set for this phase only),
+   also at dtype float32 with every opt-in kernel (which passes the dtype
+   gate: kernels 3 and 4 have float32 forms); takes the template's
    in-context response for STAGE1_CAPTION through the port's parser and a
    LayoutCache file into a spec; then loads each bundle (and, for LMD, SAM
    through `load_segmenter`) on the card, printing the load wall, GB/s of
@@ -143,8 +155,23 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM.
    this work at 50): three image directories, the `[batched] 3/3 done` line,
    and a rerun that schedules `[batched] 0 jobs`. Every wrapper shape must
    be one phase 2 checked.
+10. Float32 LMD+ with every opt-in kernel, and the stage-2 eval of its
+   images. (a) The SD1.4+GLIGEN bundle at float32 with `ALL_KERNELS`
+   (random weights, seed 0): one UNet forward and one guidance gradient
+   against the float32 bundle with the options off (batch 2, GLIGEN on,
+   within 1e-3 * max|off|), then `run_lmd_plus_batch` at 512x512, CFG 7.5,
+   frozen ratio 0.5, GLIGEN beta 0.4, guidance, CoarseSegmenter,
+   `--optin-f32-steps` DDIM steps (default 50), on hand-written 2-box
+   layouts of the first two attribution prompts; phase 3's checks, the
+   launches of kernels 3-f32, 4-f32, 2-f32 and `pair_stats` as the float32
+   dispatch implies, 0 of every bf16 flash kernel, every wrapper shape one
+   phase 2 checked; the images go to `<run>/<i>/img_0.png`. (b) OWL-ViT
+   base-patch32 fabricated in fp16, validated, loaded in float32 on the card
+   and held bit for bit against its file; `lmdx_torch.cli.owl_vit_eval.main`
+   over `<run>` (attribution prompts, 2 images) at --eval-batch-size 2 and 1:
+   equal reports of 2 attribution images.
 
-Matmuls and convolutions run in bf16 (phase 9 (a): float32); TF32 is turned
+Matmuls and convolutions run in bf16 (phase 9 (a) and phase 10: float32); TF32 is turned
 off for both (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32), so the plain versions' f32 products are full
 f32.
@@ -160,6 +187,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -172,6 +200,7 @@ TOL_F32 = 1e-4            # float32 kernels: O and each gradient, share of max|p
 TOL_LSE_F32 = 1e-4        # float32 kernels: the LSE, absolute
 TOL_SUMS = 1e-3           # pair_stats: f32 sums in another order
 TOL_OPTIN = 5e-2          # options-on UNet against options-off, share of max|off|
+TOL_OPTIN_F32 = 1e-3      # the same at float32
 
 # The first two of bench.py's layouts (2 boxes each).
 SPECS = [
@@ -600,6 +629,42 @@ STAT_BWD_CASES = [(320, 4096), (320, 1024), (640, 1024), (640, 256), (1280, 256)
 OPTIN_BATCHES = (8, 4, 2)
 
 
+def _stat_case(stats, b, c, n, dtype, same):
+    """pair_stats against its plain version at one shape, with times."""
+    import torch
+
+    from lmdx_torch.nn.kernels import group_norm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(c + n + b)
+
+    def mk():
+        return (torch.randn((b, c, n), generator=gen, device="cuda") + 0.5).to(dtype)
+
+    a = mk()
+    other = a if same else mk()
+    got = gn.pair_stats(a, other)
+    want = gn.pair_stats_plain(a, other)
+    torch.cuda.synchronize()
+    errs = [_err(g_, w_, TOL_SUMS) for g_, w_ in zip(got, want)]
+    if not all(ok for _, ok in errs):
+        fail(f"pair_stats disagrees at B={b} C={c} N={n} {dtype}: "
+             f"{[e for e, _ in errs]}")
+    elems = b * c * n
+    nbytes = elems * a.element_size() * (1 if same else 2) + 2 * 4 * b * c
+    bound = _bound(stats, 3 * elems, nbytes, PEAK_F32_FLOPS)
+    ms = cuda_ms(lambda: gn.pair_stats(a, other), 20)
+    plain = cuda_ms(lambda: gn.pair_stats_plain(a, other), 20)
+    lib = _library_ms(stats, "pair_stats", lambda: (
+        a.sum(-1, dtype=torch.float32), (a * other).sum(-1, dtype=torch.float32)), 20)
+    # Relative error of the sums, so that sizes compare.
+    rel = max(e / max(w_.abs().max().item(), 1e-6) for (e, _), w_ in zip(errs, want))
+    _add(stats, ms, plain, bound, lib, max(e for e, _ in errs))
+    log(f"  pair_stats B={b} C={c} N={n} {str(dtype).split('.')[-1]} "
+        f"{'(x, x)' if same else '(a, b)'}: {ms:.4f} ms (plain {plain:.4f}, library "
+        f"{lib if lib is None else round(lib, 4)} [two calls], bound {bound:.5f}, "
+        f"{nbytes / ms / 1e6:.1f} GB/s) rel err {rel:.2e}")
+
+
 def phase_optin_kernels():
     """The three opt-in kernels against their plain versions, with times."""
     import torch
@@ -688,36 +753,6 @@ def phase_optin_kernels():
             del qf, kf, vf, q4, k4, v4
             torch.cuda.empty_cache()
 
-    def stat_case(b, c, n, dtype, same):
-        gen = torch.Generator(device="cuda").manual_seed(c + n + b)
-
-        def mk():
-            return (torch.randn((b, c, n), generator=gen, device="cuda") + 0.5).to(dtype)
-
-        a = mk()
-        other = a if same else mk()
-        got = gn.pair_stats(a, other)
-        want = gn.pair_stats_plain(a, other)
-        torch.cuda.synchronize()
-        errs = [_err(g_, w_, TOL_SUMS) for g_, w_ in zip(got, want)]
-        if not all(ok for _, ok in errs):
-            fail(f"pair_stats disagrees at B={b} C={c} N={n} {dtype}: "
-                 f"{[e for e, _ in errs]}")
-        elems = b * c * n
-        nbytes = elems * a.element_size() * (1 if same else 2) + 2 * 4 * b * c
-        bound = _bound(stats, 3 * elems, nbytes, PEAK_F32_FLOPS)
-        ms = cuda_ms(lambda: gn.pair_stats(a, other), 20)
-        plain = cuda_ms(lambda: gn.pair_stats_plain(a, other), 20)
-        lib = _library_ms(stats, "pair_stats", lambda: (
-            a.sum(-1, dtype=torch.float32), (a * other).sum(-1, dtype=torch.float32)), 20)
-        # Relative error of the sums, so that sizes compare.
-        rel = max(e / max(w_.abs().max().item(), 1e-6) for (e, _), w_ in zip(errs, want))
-        _add(stats, ms, plain, bound, lib, max(e for e, _ in errs))
-        log(f"  pair_stats B={b} C={c} N={n} {str(dtype).split('.')[-1]} "
-            f"{'(x, x)' if same else '(a, b)'}: {ms:.4f} ms (plain {plain:.4f}, library "
-            f"{lib if lib is None else round(lib, 4)} [two calls], bound {bound:.5f}, "
-            f"{nbytes / ms / 1e6:.1f} GB/s) rel err {rel:.2e}")
-
     # What one call costs the host (one allocation, the ctypes launch): the
     # floor under the device times below when calls are not queued ahead.
     x = torch.zeros((2, 1280, 64), device="cuda", dtype=torch.bfloat16)
@@ -730,12 +765,115 @@ def phase_optin_kernels():
     log(f"  pair_stats host time per call (B=2 C=1280 N=64): {host_us:.1f} us")
     for c, n in STAT_CASES:
         for b in OPTIN_BATCHES:
-            stat_case(b, c, n, torch.bfloat16, True)
+            _stat_case(stats, b, c, n, torch.bfloat16, True)
     for c, n in STAT_BWD_CASES:
-        stat_case(2, c, n, torch.float32, False)
+        _stat_case(stats, 2, c, n, torch.float32, False)
     torch.cuda.empty_cache()
     return {"flash_attention_fwd_packed": packed, "flash_attention_fwd_fusedheads": fused,
             "pair_stats": stats}
+
+
+# Float32 opt-in path (phase 10). At float32 the fused-heads size rule counts
+# K/V at 4 bytes and refuses the 1024-token self and fuser attention, so the
+# head-packed forward serves head dims 40 and 80 and the fused-heads forward
+# the rest; the guidance gradient (batch 2) runs the float32 backward after a
+# head split at both kernels' shapes.
+F32_PACKED_LEVELS = ((4096, 40), (1024, 80))
+F32_FUSED_CASES = [c for c in FUSED_CASES if c[0] != 1024 or c[1] == 77]
+F32_OPTIN_BWD = [(L, L + e, d) for L, d in FLASH_LEVELS for e in (0, 30)] + BWD_SHORT_KV
+
+
+def phase_f32_optin_kernels(bwd, stats):
+    """The float32 forms of kernels 3 and 4 against their plain versions at
+    every shape and batch phase 10 gives them (O within 1e-4 * max|plain|,
+    the LSE within 1e-4), the packed one also equal bit for bit to kernel
+    1-f32 on the same inputs; the float32 backward at phase 10's gradient
+    shapes and `pair_stats` on float32 (x, x) at every GroupNorm of the UNet,
+    their totals added to `bwd` and `stats`. Bound: operations at the float32
+    FMA rate or bytes, the larger; library: `F.scaled_dot_product_attention`
+    at float32 (on strided (B, h, L, d) views for the fused-heads forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+
+    heads, f32 = 8, torch.float32
+    packed, fused = _totals(), _totals()
+    for L, d in F32_PACKED_LEVELS:
+        reps = 3 if L == 4096 else 20
+        for extra in (0, 30):
+            for b in OPTIN_BATCHES:
+                lk = L + extra
+                q, k, v, _ = _inputs(b, heads, L, lk, d, seed=L + lk + b + 3, dtype=f32)
+                o, lse = fa.flash_attention_fwd_packed(q, k, v)
+                o_ref, lse_ref = fa.attention_fwd_packed_plain(q, k, v)
+                torch.cuda.synchronize()
+                e_o, ok_o = _err(o, o_ref, TOL_F32)
+                e_l = (lse - lse_ref).abs().max().item()
+                if not (ok_o and e_l <= TOL_LSE_F32):
+                    fail(f"packed forward f32 disagrees at B={b} L={L} Lk={lk} d={d}: "
+                         f"|dO|={e_o} |dLSE|={e_l}")
+                o_one, lse_one = fa.flash_attention_fwd(q, k, v)
+                if not (torch.equal(o, o_one) and torch.equal(lse, lse_one)):
+                    fail(f"packed forward f32 differs from kernel 1-f32 at B={b} L={L} "
+                         f"Lk={lk} d={d}")
+                del o, lse, o_ref, lse_ref, o_one, lse_one
+                bh = b * heads
+                flops = 4 * bh * L * lk * d
+                nbytes = 4 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
+                bound = _bound(packed, flops, nbytes, PEAK_F32_FLOPS)
+                ms = cuda_ms(lambda: fa.flash_attention_fwd_packed(q, k, v), reps)
+                plain = cuda_ms(lambda: fa.attention_fwd_packed_plain(q, k, v), reps)
+                torch.cuda.empty_cache()
+                lib = _library_ms(packed, "packed forward f32",
+                                  lambda: F.scaled_dot_product_attention(q, k, v), reps)
+                _add(packed, ms, plain, bound, lib, e_o)
+                log(f"  packed f32 B={b} h={heads} Lq={L} Lk={lk} d={d}: "
+                    f"{_fmt(ms, plain, lib, bound, flops)} (equal to kernel 1-f32 bit for "
+                    f"bit) err O {e_o:.2e} LSE {e_l:.2e}")
+                del q, k, v
+                torch.cuda.empty_cache()
+
+    for L, lk, hd in F32_FUSED_CASES:
+        d = hd // heads
+        for b in OPTIN_BATCHES:
+            gen = torch.Generator(device="cuda").manual_seed(L + lk + hd + b + 1)
+            qf, kf, vf = (torch.randn((b, rows, hd), generator=gen, device="cuda")
+                          for rows in (L, lk, lk))
+            o, lse = fa.flash_attention_fwd_fusedheads(qf, kf, vf, heads)
+            o_ref, lse_ref = fa.attention_fwd_fusedheads_plain(qf, kf, vf, heads)
+            torch.cuda.synchronize()
+            e_o, ok_o = _err(o, o_ref, TOL_F32)
+            e_l = (lse - lse_ref).abs().max().item()
+            if not (ok_o and e_l <= TOL_LSE_F32):
+                fail(f"fused-heads forward f32 disagrees at B={b} Lq={L} Lk={lk} hd={hd}: "
+                     f"|dO|={e_o} |dLSE|={e_l}")
+            del o, lse, o_ref, lse_ref
+            flops = 4 * b * heads * L * lk * d
+            nbytes = 4 * b * hd * (2 * L + 2 * lk) + 4 * b * heads * L
+            bound = _bound(fused, flops, nbytes, PEAK_F32_FLOPS)
+            ms = cuda_ms(lambda: fa.flash_attention_fwd_fusedheads(qf, kf, vf, heads), 20)
+            plain = cuda_ms(lambda: fa.attention_fwd_fusedheads_plain(qf, kf, vf, heads), 20)
+            q4, k4, v4 = (t.view(b, -1, heads, d).transpose(1, 2) for t in (qf, kf, vf))
+            lib = _library_ms(fused, "fused-heads forward f32",
+                              lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+            _add(fused, ms, plain, bound, lib, e_o)
+            log(f"  fusedheads f32 B={b} h={heads} Lq={L} Lk={lk} hd={hd}: "
+                f"{_fmt(ms, plain, lib, bound, flops)}, err O {e_o:.2e} LSE {e_l:.2e}")
+            del qf, kf, vf, q4, k4, v4
+            torch.cuda.empty_cache()
+
+    before = bwd["ms"]
+    for L, lk, d in F32_OPTIN_BWD:
+        _check_bwd(bwd, 2, heads, L, lk, d, 3 if L == 4096 else 20, dtype=f32)
+    log(f"  bwd f32: {bwd['ms'] - before:.3f} ms over the {len(F32_OPTIN_BWD)} shapes of the "
+        f"float32 opt-in path")
+    for c, n in STAT_CASES:
+        for b in OPTIN_BATCHES:
+            _stat_case(stats, b, c, n, f32, True)
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd_packed_f32": packed,
+            "flash_attention_fwd_fusedheads_f32": fused}
 
 
 def _expected_launches(cfg, num_steps, fuser_beta, guidance_iters, passes=2,
@@ -839,7 +977,8 @@ def _default_expect(cfg, steps, fuser_beta, ladders, expected_sam, passes=2,
                  "flash_attention_fwd_packed": 0, "flash_attention_fwd_fusedheads": 0,
                  "pair_stats": 0, "sam_attention": expected_sam,
                  "flash_attention_fwd_f32": 0, "flash_attention_bwd_f32": 0,
-                 "sam_attention_f32": 0}, ladder_max,
+                 "sam_attention_f32": 0, "flash_attention_fwd_packed_f32": 0,
+                 "flash_attention_fwd_fusedheads_f32": 0}, ladder_max,
                 f"full UNet {full} flash layers per forward, early-exit {early}")
 
     return expect
@@ -877,13 +1016,15 @@ def _unet_layout(cfg):
     return blocks, norms + 1, norms_after[("up", last_up)], last_up
 
 
-def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
-    """Expected launch counts of the LMD+ path with every option on. The
-    dispatch: an untapped attention runs the fused-heads kernel where
-    `fusedheads_supported` holds, else the per-head gate and there the packed
-    kernel; tapped cross-attentions stay plain math; every GroupNorm launches
-    `pair_stats` once forward and once backward. The backward kernel runs once
-    for every kernel forward inside a guidance iteration."""
+def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps, dtype_name="bfloat16"):
+    """Expected launch counts of the LMD+ path with every option on, at the
+    bundle's compute dtype (bf16 kernels, or their float32 forms and none of
+    the bf16 ones). The dispatch: an untapped attention runs the fused-heads
+    kernel where `fusedheads_supported` holds at that dtype, else the
+    per-head gate and there the packed kernel; tapped cross-attentions stay
+    plain math; every GroupNorm launches `pair_stats` once forward and once
+    backward. The backward kernel runs once for every kernel forward inside
+    a guidance iteration."""
     import torch
 
     from lmdx_torch.nn.kernels import flash_attention as fa
@@ -894,6 +1035,8 @@ def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
     early_blocks = [b for b in blocks if not (b[0][0] == "up" and b[0][1] > last_up)]
     guidance_keys = set(default_guidance_keys(ucfg))
     ctx_len, heads = cfg.clip.max_length, ucfg.num_attention_heads[0]
+    dtype = getattr(torch, dtype_name)
+    suffix = "_f32" if dtype == torch.float32 else ""
 
     def counts(layers, tapped, fuser):
         """(packed, fused-heads) launches of one forward over `layers`."""
@@ -903,8 +1046,8 @@ def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
             if key not in tapped:
                 calls.append((n, ctx_len))
             for lq, lk in calls:
-                qf = torch.empty((1, lq, width), dtype=torch.bfloat16, device="meta")
-                kf = torch.empty((1, lk, width), dtype=torch.bfloat16, device="meta")
+                qf = torch.empty((1, lq, width), dtype=dtype, device="meta")
+                kf = torch.empty((1, lk, width), dtype=dtype, device="meta")
                 if fa.fusedheads_supported(qf, kf, heads):
                     fused += 1
                 elif lk >= 256:
@@ -934,11 +1077,13 @@ def _optin_expect(cfg, steps, fuser_beta, ladder, per_box_taps):
             budgets, max_index, steps,
             lambda i: sum(counts(early_blocks, guidance_keys, i < fuser_steps)))
         stats = 2 * steps * norms_full + n_iters * 2 * norms_early
-        return ({"flash_attention_fwd": 0, "flash_attention_bwd": bwd,
-                 "flash_attention_fwd_packed": packed,
-                 "flash_attention_fwd_fusedheads": fused, "pair_stats": stats,
-                 "sam_attention": 0, "flash_attention_fwd_f32": 0,
-                 "flash_attention_bwd_f32": 0, "sam_attention_f32": 0}, ladder_max,
+        want = {f"{name}{tail}": 0 for name in (
+            "flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_packed",
+            "flash_attention_fwd_fusedheads", "sam_attention") for tail in ("", "_f32")}
+        want.update({f"flash_attention_bwd{suffix}": bwd,
+                     f"flash_attention_fwd_packed{suffix}": packed,
+                     f"flash_attention_fwd_fusedheads{suffix}": fused, "pair_stats": stats})
+        return (want, ladder_max,
                 f"{norms_full} GroupNorms per full forward, {norms_early} per guidance "
                 f"forward and as many in its backward, {n_iters} guidance iterations")
 
@@ -1167,15 +1312,82 @@ def phase_lmd(steps: int, profile: str | None = None):
     return launches
 
 
-def _optin_unet_check(on, off):
-    """One UNet forward and one gradient of the guidance taps w.r.t. the
-    latents, options on against options off, on the same weights and inputs
-    (batch 2, GLIGEN on). Also holds every shape the opt-in wrappers are given
-    against the tables phase 2 checked."""
-    import torch
-
+@contextlib.contextmanager
+def _recording_optin_shapes():
+    """Records, while active, the shape and dtype of every call to the
+    packed and fused-heads forwards, the flash backward and `pair_stats` (the
+    wrappers still launch and count); yields the sets by wrapper."""
     from lmdx_torch.nn.kernels import flash_attention as fa
     from lmdx_torch.nn.kernels import group_norm as gn
+
+    seen = {"packed": set(), "fused": set(), "bwd": set(), "stats": set()}
+    originals = (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
+                 fa.flash_attention_bwd, gn.pair_stats)
+
+    def packed(q, k, v):
+        seen["packed"].add((q.shape[0], q.shape[2], k.shape[2] - q.shape[2], _dtype_name(q)))
+        return originals[0](q, k, v)
+
+    def fused(qf, kf, vf, heads):
+        seen["fused"].add((qf.shape[0], qf.shape[1], kf.shape[1], qf.shape[2], _dtype_name(qf)))
+        return originals[1](qf, kf, vf, heads)
+
+    def bwd(q, k, v, *rest):
+        seen["bwd"].add((q.shape[0], q.shape[2], k.shape[2], q.shape[3], _dtype_name(q)))
+        return originals[2](q, k, v, *rest)
+
+    def stats(a, b):
+        seen["stats"].add((a.shape[0], a.shape[1], a.shape[2], _dtype_name(a), a is b))
+        return originals[3](a, b)
+
+    (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
+     fa.flash_attention_bwd, gn.pair_stats) = packed, fused, bwd, stats
+    try:
+        yield seen
+    finally:
+        (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
+         fa.flash_attention_bwd, gn.pair_stats) = originals
+
+
+def _optin_checked(dtype_name: str) -> dict:
+    """Every (batch, shape..., dtype) phase 2 holds the opt-in path's
+    wrappers to at `dtype_name`, as `_recording_optin_shapes` records them."""
+    b_all = OPTIN_BATCHES
+    if dtype_name == "float32":
+        packed = {(b, L, e) for L, _ in F32_PACKED_LEVELS for e in (0, 30) for b in b_all}
+        fused = {(b, *c) for c in F32_FUSED_CASES for b in b_all}
+        bwd = ({(2, *c) for c in F32_OPTIN_BWD}
+               | {(b, L, L + e, d) for L, d in FLASH_LEVELS for b, e in F32_BWD_CASES})
+    else:
+        packed = {(b, L, e) for L, e in PACKED_CASES for b in b_all}
+        fused = {(b, *c) for c in FUSED_CASES for b in b_all}
+        bwd = ({(2, *c) for c in BWD_SHORT_KV}
+               | {(b, L, L + e, d) for L, d in FLASH_LEVELS for b, e in BWD_CASES})
+    tag = (dtype_name,)
+    return {"packed": {s + tag for s in packed}, "fused": {s + tag for s in fused},
+            "bwd": {s + tag for s in bwd},
+            "stats": ({(b, c, n, dtype_name, True) for c, n in STAT_CASES for b in b_all}
+                      | {(2, c, n, "float32", False) for c, n in STAT_BWD_CASES})}
+
+
+def _require_optin_shapes(label, seen, dtype_name):
+    checked = _optin_checked(dtype_name)
+    for name, shapes in seen.items():
+        if not shapes or not shapes <= checked[name]:
+            fail(f"{label}: {name} was given shapes phase 2 did not check: "
+                 f"{sorted(shapes - checked[name], key=str)} (seen {len(shapes)})")
+    log(f"{label}: every shape the opt-in wrappers were given was checked in phase 2 "
+        f"({ {k: len(v) for k, v in seen.items()} })")
+
+
+def _optin_unet_check(on, off, tol, label):
+    """One UNet forward and one gradient of the guidance taps w.r.t. the
+    latents, options on against options off, on the same weights and inputs
+    (batch 2, GLIGEN on): max|on - off| <= tol * max|off| for each. Also
+    holds every shape the opt-in wrappers are given against the tables phase
+    2 checked at the bundles' dtype."""
+    import torch
+
     from lmdx_torch.nn.unet import apply_unet
     from lmdx_torch.sampling.guidance import GuidanceSpec, default_guidance_keys
 
@@ -1190,26 +1402,6 @@ def _optin_unet_check(on, off):
     objs = randn(2, cfg.unet.gligen_max_objs, cfg.unet.cross_attention_dim)
     spec = GuidanceSpec(keys=default_guidance_keys(cfg.unet)).tap_spec
 
-    seen = {"packed": set(), "fused": set(), "bwd": set(), "stats": set()}
-    originals = (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
-                 fa.flash_attention_bwd, gn.pair_stats)
-
-    def packed(q, k, v):
-        seen["packed"].add((q.shape[2], k.shape[2] - q.shape[2]))
-        return originals[0](q, k, v)
-
-    def fused(qf, kf, vf, heads):
-        seen["fused"].add((qf.shape[1], kf.shape[1], qf.shape[2]))
-        return originals[1](qf, kf, vf, heads)
-
-    def bwd(q, k, v, *rest):
-        seen["bwd"].add((q.shape[2], k.shape[2], q.shape[3]))
-        return originals[2](q, k, v, *rest)
-
-    def stats(a, b):
-        seen["stats"].add((a.shape[1], a.shape[2], a.dtype, a is b))
-        return originals[3](a, b)
-
     def run(bundle):
         with torch.no_grad():
             eps = apply_unet(bundle.unet, lat, 501, ctx, objs=objs)[0]
@@ -1219,38 +1411,20 @@ def _optin_unet_check(on, off):
         loss = sum(t.float().square().sum() for t in taps.values())
         return eps, torch.autograd.grad(loss, x)[0]
 
-    (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
-     fa.flash_attention_bwd, gn.pair_stats) = packed, fused, bwd, stats
-    try:
+    with _recording_optin_shapes() as seen:
         eps_on, grad_on = run(on)
-    finally:
-        (fa.flash_attention_fwd_packed, fa.flash_attention_fwd_fusedheads,
-         fa.flash_attention_bwd, gn.pair_stats) = originals
     eps_off, grad_off = run(off)
     torch.cuda.synchronize()
     for what, a, b in (("eps", eps_on, eps_off), ("latent gradient", grad_on, grad_off)):
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            fail(f"optin: non-finite {what}")
-        diff, ok = _err(a, b, TOL_OPTIN)
+            fail(f"{label}: non-finite {what}")
+        diff, ok = _err(a, b, tol)
         ref = b.abs().max().item()
-        log(f"optin: UNet {what} options on vs off: max|diff| {diff:.3e} = "
-            f"{diff / ref:.3e} of max|off| {ref:.3e} (limit {TOL_OPTIN:g})")
+        log(f"{label}: UNet {what} options on vs off: max|diff| {diff:.3e} = "
+            f"{diff / ref:.3e} of max|off| {ref:.3e} (limit {tol:g})")
         if not ok:
-            fail(f"optin: UNet {what} differs by {diff / ref:.3e} of max|off|")
-
-    f32, bf16 = torch.float32, torch.bfloat16
-    checked = {
-        "packed": set(PACKED_CASES), "fused": set(FUSED_CASES),
-        "bwd": set(BWD_SHORT_KV) | {(L, L + e, d) for L, d in FLASH_LEVELS
-                                    for b, e in BWD_CASES if b == 2},
-        "stats": ({(c, n, bf16, True) for c, n in STAT_CASES}
-                  | {(c, n, f32, False) for c, n in STAT_BWD_CASES})}
-    for name, shapes in seen.items():
-        if not shapes or not shapes <= checked[name]:
-            fail(f"optin: {name} was given shapes phase 2 did not check: "
-                 f"{sorted(shapes - checked[name], key=str)} (seen {len(shapes)})")
-    log(f"optin: every shape the opt-in wrappers were given was checked in phase 2 "
-        f"({ {k: len(v) for k, v in seen.items()} })")
+            fail(f"{label}: UNet {what} differs by {diff / ref:.3e} of max|off|")
+    _require_optin_shapes(label, seen, str(cfg.torch_dtype()).rpartition(".")[2])
 
 
 def phase_optin(steps: int, profile: str | None = None):
@@ -1269,7 +1443,7 @@ def phase_optin(steps: int, profile: str | None = None):
     torch.cuda.synchronize()
     log(f"optin: bundles with every option on and off (random weights, seed 0) built in "
         f"{time.perf_counter() - t0:.1f} s")
-    _optin_unet_check(bundle, off)
+    _optin_unet_check(bundle, off, TOL_OPTIN, "optin")
     del off
     torch.cuda.empty_cache()
 
@@ -1597,8 +1771,6 @@ def _dir_bytes(path: str) -> int:
 def phase_checkpoint(steps: int):
     """Phase 8: fabricated checkpoints at production shapes, loaded from disk
     by the port's loader, rendered from a layout that went through stage 1."""
-    import tempfile
-
     import torch
 
     from lmdx_torch.config import ALL_KERNELS
@@ -1629,8 +1801,10 @@ def phase_checkpoint(steps: int):
 
             key = CKPT_MODELS[0][0]
             refusals = []
+            # Float32 with every opt-in kernel passes the dtype gate (each
+            # kernel has a float32 form) and meets the tokenizer refusal too.
             for kw, needle in (({}, "WordTokenizer"),
-                               ({"dtype": "float32", "kernels": ALL_KERNELS}, "float32 forms")):
+                               ({"dtype": "float32", "kernels": ALL_KERNELS}, "WordTokenizer")):
                 try:
                     models.load_bundle(key, dirs[key], device="cuda", **kw)
                 except ValueError as exc:
@@ -1750,8 +1924,6 @@ def phase_cli(f32_steps: int, plus_steps: int, profile: str | None = None):
     box-prompted, on one of (a)'s images; (c) bf16 LMD+ through the batched,
     pipelined mode, run twice (the second schedules nothing). `profile`
     traces (a) with torch.profiler into that file."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -1900,6 +2072,153 @@ def phase_cli(f32_steps: int, plus_steps: int, profile: str | None = None):
     return _sum_launches(all_launches)
 
 
+# Hand-written stage-1 responses, in the template's format, for the first two
+# prompts of the attribution benchmark (eval/prompts.py, "lmd_attribution"):
+# 2 boxes each.
+ATTRIBUTION_RESPONSES = (
+    "Objects: [('a blue dog', [50, 230, 200, 220]), ('a white bowl', [300, 330, 160, 110])]"
+    "\nBackground prompt: A realistic photo of a scene\nNegative prompt: ",
+    "Objects: [('a yellow book', [60, 300, 190, 130]), ('a green cup', [310, 250, 120, 180])]"
+    "\nBackground prompt: A realistic photo of a scene\nNegative prompt: ",
+)
+
+
+def phase_f32_optin(steps: int, run_dir: str):
+    """Phase 10 (a): float32 LMD+ with every opt-in kernel. The float32 bundle
+    with `ALL_KERNELS` against the float32 bundle with the options off (one
+    UNet forward and one guidance gradient, batch 2, GLIGEN on, within 1e-3 *
+    max|off|), then `run_lmd_plus_batch` on two attribution prompts with
+    hand-written 2-box layouts, `_drive`'s checks, the launches of kernels
+    3-f32, 4-f32, 2-f32 and `pair_stats` as the float32 dispatch implies and
+    0 of every bf16 flash kernel, every wrapper shape one phase 2 checked;
+    each image is written as `<run_dir>/<i>/img_0.png`."""
+    import torch
+    from PIL import Image
+
+    from lmdx_torch.config import ALL_KERNELS
+    from lmdx_torch.eval.prompts import get_prompts
+    from lmdx_torch.methods._grounded import GroundedParams
+    from lmdx_torch.methods.batch import run_lmd_plus_batch
+    from lmdx_torch.runtime import models
+    from lmdx_torch.sampling.guidance import default_guidance_keys, default_obj_attn_key
+    from lmdx_torch.text import parser
+
+    t_phase = time.perf_counter()
+    key = "gligen/diffusers-generation-text-box"
+    t0 = time.perf_counter()
+    bundle = models.load_bundle(key, seed=0, dtype="float32", device="cuda",
+                                kernels=ALL_KERNELS)
+    off = models.load_bundle(key, seed=0, dtype="float32", device="cuda")
+    torch.cuda.synchronize()
+    log(f"optin f32: float32 bundles with every option on and off (random weights, seed 0) "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    _optin_unet_check(bundle, off, TOL_OPTIN_F32, "optin f32")
+    del off
+    torch.cuda.empty_cache()
+
+    specs = []
+    for prompt, response in zip(get_prompts("lmd_attribution"), ATTRIBUTION_RESPONSES):
+        layout = parser.parse_layout_response(response)
+        specs.append({"prompt": prompt.strip().rstrip("."),
+                      "gen_boxes": parser.filter_boxes(layout.gen_boxes),
+                      "bg_prompt": layout.bg_prompt, "extra_neg_prompt": layout.neg_prompt})
+    if [len(s["gen_boxes"]) for s in specs] != [2, 2]:
+        fail(f"optin f32: the attribution layouts parsed to {specs}")
+    cfg = bundle.config
+    p = GroundedParams(num_inference_steps=steps)
+    per_box_taps = (default_obj_attn_key(cfg.unet), *default_guidance_keys(cfg.unet))
+    with _recording_optin_shapes() as seen:
+        results, launches = _drive(
+            "optin f32",
+            lambda: run_lmd_plus_batch(specs, bundle, bg_seeds=[1, 2],
+                                       num_inference_steps=steps),
+            cfg, steps,
+            _optin_expect(cfg, steps, 0.4, (p.overall_max_iter, p.overall_max_index_step),
+                          per_box_taps, "float32"),
+            bwd_key="flash_attention_bwd_f32")
+    for r in results:
+        if r.aux["frozen_mask"].sum() <= 0:
+            fail("optin f32: empty frozen mask")
+    _require_optin_shapes("optin f32", seen, "float32")
+    for i, r in enumerate(results):
+        os.makedirs(os.path.join(run_dir, str(i)), exist_ok=True)
+        Image.fromarray(r.image).save(os.path.join(run_dir, str(i), "img_0.png"))
+    log(f"optin f32: {len(results)} images written under {run_dir}/<i>/img_0.png for "
+        f"{[s['prompt'] for s in specs]}")
+    del bundle
+    torch.cuda.empty_cache()
+    log(f"optin f32: phase 10 (a) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_owlvit(run_dir: str, n_images: int):
+    """Phase 10 (b): OWL-ViT base-patch32 fabricated in fp16, validated
+    against its manifest and loaded from disk in float32 on the card (every
+    parameter equal to its file tensor cast, bit for bit); then the stage-2
+    eval CLI (`lmdx_torch.cli.owl_vit_eval.main`, in this process) over
+    `run_dir` at --eval-batch-size 2 and 1: equal reports, each of
+    `n_images` attribution images."""
+    import io
+    import torch
+
+    from lmdx_torch.cli import owl_vit_eval
+    from lmdx_torch.eval.owl_vit import OwlViTDetector
+    from lmdx_torch.runtime import convert, fabricate
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lmdx_owlvit_") as root:
+        t0 = time.perf_counter()
+        n = fabricate.fabricate_owlvit(root, torch.float16)
+        path = os.path.join(root, fabricate.OWLVIT_KEY.replace("/", "--"))
+        size = _dir_bytes(path)
+        log(f"owlvit: fabricated {n / 1e6:.1f}M params in fp16 ({size / 1e9:.3f} GB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        report = convert.validate_component(convert.OWLVIT_MANIFEST, path)
+        if any(report.values()):
+            fail(f"owlvit: the checkpoint does not match its manifest: {report}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detector = OwlViTDetector.from_checkpoint(path, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        values = _check_loaded("owlvit", {"owlvit": detector.model},
+                               {"owlvit": convert.load_owlvit_state_dict(path)}, ("",))
+        log(f"owlvit: loaded from {size / 1e9:.3f} GB in {wall:.2f} s, float32 on the card; "
+            f"{values / 1e6:.1f}M values equal the file's tensors bit for bit")
+        del detector
+        torch.cuda.empty_cache()
+
+        summaries = []
+        for batch in (2, 1):
+            argv = ["--run_base_path", run_dir, "--prompt-type", "lmd_attribution",
+                    "--num_prompts", str(n_images), "--owlvit-checkpoint", path,
+                    "--eval-batch-size", str(batch)]
+            out = io.StringIO()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = owl_vit_eval.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            summary = out.getvalue().strip()
+            if rc != 0:
+                fail(f"owlvit: the eval CLI returned {rc} at --eval-batch-size {batch}")
+            log(f"owlvit: eval CLI at --eval-batch-size {batch}: wall {wall:.2f} s with the "
+                f"detector's load, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; report "
+                f"{summary.splitlines()}")
+            first = summary.splitlines()[0]
+            if not (first.startswith("Eval type: attribution, success: ")
+                    and f"/{n_images}, rate" in first):
+                fail(f"owlvit: the report does not record {n_images} attribution images: "
+                     f"{summary!r}")
+            summaries.append(summary)
+        if summaries[0] != summaries[1]:
+            fail(f"owlvit: batched and sequential reports differ: {summaries}")
+    log(f"owlvit: batched and sequential reports equal; phase 10 (b) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1926,6 +2245,10 @@ def main() -> None:
     ap.add_argument("--cli-steps", type=int, default=20,
                     help="DDIM steps of phase 9's batched bf16 LMD+ through the CLI (depth "
                          "only: phase 3 runs the same work at 50 steps)")
+    ap.add_argument("--optin-f32-steps", type=int, default=50,
+                    help="DDIM steps of phase 10's float32 LMD+ with every opt-in kernel "
+                         "(depth only; a rehearsal flag: the check is the 50 steps of the "
+                         "default)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="trace the three paths and phase 9's float32 LMD with "
                          "torch.profiler and write the device time by kernel to PATH and to "
@@ -1959,6 +2282,8 @@ def main() -> None:
     kernels["sam_attention"] = phase_sam_kernel()
     kernels.update(phase_optin_kernels())
     kernels.update(phase_f32_kernels())
+    kernels.update(phase_f32_optin_kernels(kernels["flash_attention_bwd_f32"],
+                                           kernels["pair_stats"]))
     plus = phase_main_path(args.steps, args.profile)
     lmd_profile = optin_profile = None
     root, ext = os.path.splitext(args.profile or "")
@@ -1971,11 +2296,14 @@ def main() -> None:
     checkpoint = phase_checkpoint(args.ckpt_steps)
     cli = phase_cli(args.cli_f32_steps, args.cli_steps,
                     f"{root}_cli{ext}" if args.profile else None)
+    with tempfile.TemporaryDirectory(prefix="lmdx_f32_optin_") as run_dir:
+        optin_f32 = phase_f32_optin(args.optin_f32_steps, run_dir)
+        phase_owlvit(run_dir, len(ATTRIBUTION_RESPONSES))
     launches = {name: plus[name] + lmd[name] + optin[name] + single[name] + baselines[name]
-                + checkpoint[name] + cli[name] for name in kernels}
+                + checkpoint[name] + cli[name] + optin_f32[name] for name in kernels}
     log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
         f"single-image methods {single}, baselines and solvers {baselines}, "
-        f"checkpoint path {checkpoint}, CLI {cli}")
+        f"checkpoint path {checkpoint}, CLI {cli}, float32 opt-in LMD+ path {optin_f32}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -1995,7 +2323,11 @@ def main() -> None:
                "flash_attention_bwd_f32": ("lmdx_torch/csrc/attention_f32.cu",
                                            "lmdx/nn/pallas/flash_attention.py:384"),
                "sam_attention_f32": ("lmdx_torch/csrc/attention_f32.cu",
-                                     "lmdx/nn/pallas/sam_attention.py:101")}
+                                     "lmdx/nn/pallas/sam_attention.py:101"),
+               "flash_attention_fwd_packed_f32": ("lmdx_torch/csrc/attention_f32.cu",
+                                                  "lmdx/nn/pallas/flash_attention.py:211"),
+               "flash_attention_fwd_fusedheads_f32": ("lmdx_torch/csrc/attention_f32.cu",
+                                                      "lmdx/nn/pallas/flash_attention.py:622")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -2011,11 +2343,14 @@ def main() -> None:
         f"for SAM, "
         f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
         f"for the fused-heads forward, {len(STAT_CASES) * n_opt} + {len(STAT_BWD_CASES)} "
-        f"for pair_stats, {3 * len(F32_FWD_CASES)} for the float32 forward, "
-        f"{3 * len(F32_BWD_CASES)} for the float32 backward, {len(F32_SAM_CASES)} for "
-        f"float32 SAM); launches are those of the LMD+, LMD and opt-in LMD+ paths, "
-        f"the single-image methods, the baselines and solvers, the checkpoint path and "
-        f"the CLI together")
+        f"+ {len(STAT_CASES) * n_opt} float32 (x, x) for pair_stats, "
+        f"{3 * len(F32_FWD_CASES)} for the float32 forward, "
+        f"{3 * len(F32_BWD_CASES)} + {len(F32_OPTIN_BWD)} for the float32 backward, "
+        f"{len(F32_SAM_CASES)} for float32 SAM, {4 * n_opt} for the float32 packed "
+        f"forward, {len(F32_FUSED_CASES) * n_opt} for the float32 fused-heads forward); "
+        f"launches are those of the LMD+, LMD and opt-in LMD+ paths, the single-image "
+        f"methods, the baselines and solvers, the checkpoint path, the CLI and the "
+        f"float32 opt-in LMD+ path together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -1,7 +1,8 @@
-// Float32 attention body: the float32 forms of kernels 1, 2 and 5.
+// Float32 attention body: the float32 forms of kernels 1 to 5.
 //
 // The Pallas kernels (lmdx/nn/pallas/flash_attention.py::_pallas_attention,
-// l.107, and _pallas_attention_bwd, l.384; lmdx/nn/pallas/sam_attention.py::
+// l.107, _pallas_attention_bwd, l.384, _pallas_attention_packed, l.211, and
+// _pallas_attention_fusedheads, l.622; lmdx/nn/pallas/sam_attention.py::
 // _pallas_sam_attention, l.101) take any dtype. At float32 they keep every
 // product and every probability in float32, and so does the reference's
 // no-autocast run (LMD's published precision). The bf16 body
@@ -27,8 +28,12 @@
 // accumulates TM rows x DP/16 columns (tx + 16 c) of its output in
 // registers. Scores are in log2 units (scale * log2 e folded into one
 // multiply, ex2 for exp) and the LSE leaves in natural units, as in the
-// bf16 body; the row max starts at -inf and keys >= Lk (the GLIGEN fuser's
-// L + 30) are masked to -inf. Rows of a float32 tile lie DP + 1 floats apart
+// bf16 body; the row max starts at the caller's m_init and the denominator
+// is clamped at its l_min ((-inf, 0): kernels 1, 4 and 5; the head-packed
+// kernel 3 passes its reference's (-1e30, 1e-30)), and keys >= Lk (the
+// GLIGEN fuser's L + 30) are masked to -inf. The forward reads a head
+// through a view (F32HeadView: pointers and row strides), so the fused-heads
+// kernel walks the projection layout (B, L, heads * d) in place. Rows of a float32 tile lie DP + 1 floats apart
 // (an odd stride: the 16 rows that the 16 tx threads read at one column fall
 // in 16 banks); probability tiles 4 floats wider than their width (the two
 // half-warps' rows fall in opposite halves of the banks). No cp.async ring,
@@ -56,16 +61,17 @@ __host__ __device__ constexpr int f32_ldp(int cols) { return cols + 4; }
 // takes (attention_bwd_tiled_plain follows both).
 __host__ __device__ constexpr int f32_bwd_rows(int dp) { return dp <= 80 ? 64 : 32; }
 
-// Rows [row0, row0 + ROWS) of an (L, d) float32 matrix into a shared tile of
-// DP columns; rows >= L and columns >= d become zeros.
+// Rows [row0, row0 + ROWS) of an (L, d) float32 matrix whose rows lie ld
+// floats apart into a shared tile of DP columns; rows >= L and columns >= d
+// become zeros.
 template <int DP, int ROWS>
-__device__ __forceinline__ void f32_load_rows(float* dst, const float* __restrict__ src, int row0,
-                                              int L, int d) {
+__device__ __forceinline__ void f32_load_rows(float* dst, const float* __restrict__ src, int ld,
+                                              int row0, int L, int d) {
   constexpr int LD = f32_ld(DP);
   for (int i = threadIdx.x; i < ROWS * DP; i += kF32Threads) {
     const int r = i / DP, c = i - r * DP;
     const int gr = row0 + r;
-    dst[r * LD + c] = (gr < L && c < d) ? src[(size_t)gr * d + c] : 0.0f;
+    dst[r * LD + c] = (gr < L && c < d) ? src[(size_t)gr * ld + c] : 0.0f;
   }
 }
 
@@ -170,13 +176,40 @@ __host__ __device__ size_t f32_fwd_smem_bytes(const Bias& bias) {
                           (size_t)kF32BQ * f32_ldp(kF32BK) + bias.smem_floats(kF32BQ));
 }
 
-// One forward block: q rows [blockIdx.x * 64, +64) of batch*head blockIdx.y.
-// o = softmax(q k^T scale + bias) v; lse (natural units) when not null.
+// One head as the forward reads it: row pointers and row strides in floats
+// (d for a (BH, L, d) tensor, heads * d for the projection layout), this
+// head's LSE row (or null), and its batch*head index for the bias policy.
+struct F32HeadView {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* lse;
+  int ldq, ldk, ldv, ldo;
+  int bh;
+};
+
+// The head `bh` of row-major (BH, L, d) tensors and a (BH, Lq) lse.
+__device__ inline F32HeadView f32_head_of_bhld(const float* q, const float* k, const float* v,
+                                               float* o, float* lse, int bh, int Lq, int Lk,
+                                               int d) {
+  return {q + (size_t)bh * Lq * d,
+          k + (size_t)bh * Lk * d,
+          v + (size_t)bh * Lk * d,
+          o + (size_t)bh * Lq * d,
+          lse != nullptr ? lse + (size_t)bh * Lq : nullptr,
+          d, d, d, d, bh};
+}
+
+// One forward block: q rows [q0, q0 + 64) of the head `hv`.
+// o = softmax(q k^T scale + bias) v; lse (natural units) when not null. The
+// row max starts at m_init (log2 units) and the denominator is clamped from
+// below at l_min.
 template <int DP, class Bias>
-__device__ __forceinline__ void attention_f32_fwd_body(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int Lq, int Lk, int d, float scale_log2,
-    const Bias& bias) {
+__device__ __forceinline__ void attention_f32_fwd_body(const F32HeadView& hv, int q0, int Lq,
+                                                       int Lk, int d, float scale_log2,
+                                                       const Bias& bias, float m_init,
+                                                       float l_min) {
   constexpr int TM = kF32BQ / 16, TN = kF32BK / 16, NC = DP / 16;
   constexpr int LD = f32_ld(DP), LDP = f32_ldp(kF32BK);
   extern __shared__ float smem[];
@@ -186,20 +219,14 @@ __device__ __forceinline__ void attention_f32_fwd_body(
   float* sP = sV + kF32BK * LD;
   float* sB = sP + kF32BQ * LDP;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kF32BQ;
-  q += bh * Lq * d;
-  k += bh * Lk * d;
-  v += bh * Lk * d;
-  o += bh * Lq * d;
 
-  f32_load_rows<DP, kF32BQ>(sQ, q, q0, Lq, d);
-  bias.stage(sB, bh, q0, kF32BQ);
+  f32_load_rows<DP, kF32BQ>(sQ, hv.q, hv.ldq, q0, Lq, d);
+  bias.stage(sB, hv.bh, q0, kF32BQ);
 
   float m[TM], l[TM], acc[TM][NC];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    m[i] = -INFINITY;
+    m[i] = m_init;
     l[i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
@@ -207,8 +234,8 @@ __device__ __forceinline__ void attention_f32_fwd_body(
 
   for (int k0 = 0; k0 < Lk; k0 += kF32BK) {
     __syncthreads();  // the previous tile's sK, sV and sP are read
-    f32_load_rows<DP, kF32BK>(sK, k, k0, Lk, d);
-    f32_load_rows<DP, kF32BK>(sV, v, k0, Lk, d);
+    f32_load_rows<DP, kF32BK>(sK, hv.k, hv.ldk, k0, Lk, d);
+    f32_load_rows<DP, kF32BK>(sV, hv.v, hv.ldv, k0, Lk, d);
     __syncthreads();
     float s[TM][TN];
 #pragma unroll
@@ -233,7 +260,7 @@ __device__ __forceinline__ void attention_f32_fwd_body(
         mt = fmaxf(mt, x);
       }
       const float mn = fmaxf(m[i], half_warp_max(mt));
-      const float alpha = ex2(m[i] - mn);  // 0 on the first tile (m = -inf)
+      const float alpha = ex2(m[i] - mn);  // 0 on the first tile (m = m_init)
       l[i] *= alpha;
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
@@ -251,16 +278,16 @@ __device__ __forceinline__ void attention_f32_fwd_body(
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const float li = half_warp_sum(l[i]);
+    const float li = fmaxf(half_warp_sum(l[i]), l_min);
     const int r = q0 + ty * TM + i;
     if (r < Lq) {
       const float inv = 1.0f / li;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = tx + 16 * c;
-        if (col < d) o[(size_t)r * d + col] = acc[i][c] * inv;
+        if (col < d) hv.o[(size_t)r * hv.ldo + col] = acc[i][c] * inv;
       }
-      if (lse != nullptr && tx == 0) lse[bh * Lq + r] = m[i] * kLn2 + logf(li);
+      if (hv.lse != nullptr && tx == 0) hv.lse[r] = m[i] * kLn2 + logf(li);
     }
   }
 }
@@ -304,8 +331,8 @@ __device__ __forceinline__ void attention_f32_bwd_dq_body(
   lse += bh * Lq;
   delta += bh * Lq;
 
-  f32_load_rows<DP, BQ>(sQ, q, q0, Lq, d);
-  f32_load_rows<DP, BQ>(sG, g, q0, Lq, d);
+  f32_load_rows<DP, BQ>(sQ, q, d, q0, Lq, d);
+  f32_load_rows<DP, BQ>(sG, g, d, q0, Lq, d);
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -332,8 +359,8 @@ __device__ __forceinline__ void attention_f32_bwd_dq_body(
   }
   for (int k0 = 0; k0 < Lk; k0 += kF32BK) {
     __syncthreads();  // sD and sL are written; the previous tile's sK and sS are read
-    f32_load_rows<DP, kF32BK>(sK, k, k0, Lk, d);
-    f32_load_rows<DP, kF32BK>(sV, v, k0, Lk, d);
+    f32_load_rows<DP, kF32BK>(sK, k, d, k0, Lk, d);
+    f32_load_rows<DP, kF32BK>(sV, v, d, k0, Lk, d);
     __syncthreads();
     float s[TM][TN], dp[TM][TN];
 #pragma unroll
@@ -410,8 +437,8 @@ __device__ __forceinline__ void attention_f32_bwd_dkdv_body(
   lse += bh * Lq;
   delta += bh * Lq;
 
-  f32_load_rows<DP, kF32BK>(sK, k, k0, Lk, d);
-  f32_load_rows<DP, kF32BK>(sV, v, k0, Lk, d);
+  f32_load_rows<DP, kF32BK>(sK, k, d, k0, Lk, d);
+  f32_load_rows<DP, kF32BK>(sV, v, d, k0, Lk, d);
   float dk_acc[TM][NC], dv_acc[TM][NC];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -420,8 +447,8 @@ __device__ __forceinline__ void attention_f32_bwd_dkdv_body(
   }
   for (int q0 = 0; q0 < Lq; q0 += QS) {
     __syncthreads();  // the previous step's sQ, sG, sP and sS are read
-    f32_load_rows<DP, QS>(sQ, q, q0, Lq, d);
-    f32_load_rows<DP, QS>(sG, g, q0, Lq, d);
+    f32_load_rows<DP, QS>(sQ, q, d, q0, Lq, d);
+    f32_load_rows<DP, QS>(sG, g, d, q0, Lq, d);
     for (int i = threadIdx.x; i < QS; i += kF32Threads) {
       const int gr = q0 + i;
       sL[i] = gr < Lq ? lse[gr] * kLog2e : 0.0f;

@@ -6,14 +6,14 @@ nn/pallas/flash_attention.py: `_pallas_attention`, `_pallas_attention_bwd`,
 
 Hand-written CUDA kernels for Hopper (`lmdx_torch/csrc/flash_fwd.cu`,
 `flash_bwd.cu`, `flash_fwd_packed.cu`, `flash_fwd_fusedheads.cu` for bf16;
-`attention_f32.cu` for the float32 forms of the forward and the backward;
-their sources say what bounds them and how they are built) sit behind four
-wrappers, each with its plain PyTorch version beside it:
+`attention_f32.cu` for the float32 forms of all four; their sources say what
+bounds them and how they are built) sit behind four wrappers, each with its
+plain PyTorch version beside it. q's dtype chooses the kernel, and the other
+inputs must match it:
 
 - `flash_attention_fwd(q, k, v) -> (o, lse)` on (B, heads, L, head_dim),
-  bf16 or float32 (q's dtype chooses the kernel; k and v must match it)
-- `flash_attention_bwd(q, k, v, lse, o, do) -> (dq, dk, dv)`, bf16 or
-  float32 likewise
+  bf16 or float32
+- `flash_attention_bwd(q, k, v, lse, o, do) -> (dq, dk, dv)`, likewise
 - `flash_attention_fwd_packed(q, k, v) -> (o, lse)`: the same function from
   the reference's start values (row max -1e30, denominator clamped at
   1e-30); its plain version takes the heads in groups of
@@ -22,9 +22,7 @@ wrappers, each with its plain PyTorch version beside it:
   projection layout (B, L, heads * head_dim), lse (B, heads, Lq)
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
-launches its kernel or raises. The packed and fused-heads kernels take bf16
-only (their float32 forms are still to port: ROADMAP.md, section 2).
-`FlashAttention` and `FusedHeadsAttention` wire
+launches its kernel or raises. `FlashAttention` and `FusedHeadsAttention` wire
 them into autograd, as `jax.custom_vjp` does on the JAX side; both take their
 gradient from `flash_attention_bwd` (the fused-heads one after a head split).
 `attention_fwd_tiled_plain` repeats, step by step, the arithmetic of the
@@ -44,9 +42,9 @@ Dispatch (the attention layers call it for their untapped attentions):
   in place of `flash_attention_fwd`.
 - `fused_heads`: `flash_attention_hd` takes the projections unsplit. Where
   `fusedheads_supported` holds (every 77-token cross-attention and the self
-  and fuser attention of the 1024-, 256- and 64-token levels, by the
-  reference's size rule) it runs `FusedHeadsAttention`; otherwise it splits
-  heads and dispatches as above.
+  and fuser attention of the 256- and 64-token levels, and at bf16 those of
+  the 1024-token level too, by the reference's size rule) it runs
+  `FusedHeadsAttention`; otherwise it splits heads and dispatches as above.
 """
 
 from __future__ import annotations
@@ -62,7 +60,8 @@ from . import build as buildlib
 # adds one exactly where it launches its kernel.
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
             "flash_attention_fwd_packed": 0, "flash_attention_fwd_fusedheads": 0,
-            "flash_attention_fwd_f32": 0, "flash_attention_bwd_f32": 0}
+            "flash_attention_fwd_f32": 0, "flash_attention_bwd_f32": 0,
+            "flash_attention_fwd_packed_f32": 0, "flash_attention_fwd_fusedheads_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -285,16 +284,9 @@ def _fwd_lib():
     return fn
 
 
-def _packed_lib():
-    fn = buildlib.library("flash_fwd_packed").lmdx_flash_fwd_packed
-    if fn.argtypes is None:
-        fn.argtypes = [_PTR] * 5 + [_INT] * 5 + [_PTR]
-        fn.restype = _INT
-    return fn
-
-
-def _fusedheads_lib():
-    fn = buildlib.library("flash_fwd_fusedheads").lmdx_flash_fwd_fusedheads
+def _fwd5_lib(source: str, entry: str):
+    """An entry point (q, k, v, o, lse, batch, heads, lq, lk, d, stream)."""
+    fn = getattr(buildlib.library(source), entry)
     if fn.argtypes is None:
         fn.argtypes = [_PTR] * 5 + [_INT] * 5 + [_PTR]
         fn.restype = _INT
@@ -330,8 +322,16 @@ def _bwd_f32_lib():
 _KERNELS = {torch.bfloat16: (_fwd_lib, _bwd_lib, "flash_attention_fwd", "flash_attention_bwd"),
             torch.float32: (_fwd_f32_lib, _bwd_f32_lib, "flash_attention_fwd_f32",
                             "flash_attention_bwd_f32")}
-_BF16_ONLY = ("takes bfloat16 only: its float32 form is still to port "
-              "(ROADMAP.md, section 2)")
+# The head-packed and fused-heads kernels by q's dtype: (source, entry point,
+# LAUNCHES key).
+_PACKED = {torch.bfloat16: ("flash_fwd_packed", "lmdx_flash_fwd_packed",
+                            "flash_attention_fwd_packed"),
+           torch.float32: ("attention_f32", "lmdx_flash_fwd_packed_f32",
+                           "flash_attention_fwd_packed_f32")}
+_FUSEDHEADS = {torch.bfloat16: ("flash_fwd_fusedheads", "lmdx_flash_fwd_fusedheads",
+                                "flash_attention_fwd_fusedheads"),
+               torch.float32: ("attention_f32", "lmdx_flash_fwd_fusedheads_f32",
+                               "flash_attention_fwd_fusedheads_f32")}
 
 
 def _check_cuda(named: dict, like: torch.Tensor, dtype) -> None:
@@ -395,28 +395,31 @@ def flash_attention_fwd(q, k, v):
 
 def flash_attention_fwd_packed(q, k, v):
     """(o, lse) of attention from the head-packed reference's start values;
-    the CUDA kernel (one head a block) for CUDA tensors, the plain version
-    (heads in groups of `head_pack(head_dim)`) for CPU tensors."""
+    for CUDA tensors the kernel of q's dtype (one head a block; bf16:
+    `csrc/flash_fwd_packed.cu`, float32: `csrc/attention_f32.cu`), for CPU
+    tensors the plain version (heads in groups of `head_pack(head_dim)`)."""
     if q.device.type == "cpu":
+        _check_cpu_dtypes({"q": q, "k": k, "v": v})
         return attention_fwd_packed_plain(q, k, v)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_fwd_packed got {q.dtype}: the packed kernel "
-                         + _BF16_ONLY)
     b, h, lq, lk, d = _check_qkv(q, k, v)
+    source, entry, key = _PACKED[q.dtype]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
-    rc = _packed_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       lse.data_ptr(), b, h, lq, lk, d, _stream(q))
+    rc = _fwd5_lib(source, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  lse.data_ptr(), b, h, lq, lk, d, _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_fwd_packed launch failed: CUDA error {rc}")
-    LAUNCHES["flash_attention_fwd_packed"] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
+    LAUNCHES[key] += 1
     return o, lse
 
 
 def flash_attention_fwd_fusedheads(qf, kf, vf, heads: int):
-    """(o, lse) of attention on the projection layout (B, L, heads * d); the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    """(o, lse) of attention on the projection layout (B, L, heads * d); for
+    CUDA tensors the kernel of qf's dtype (bf16:
+    `csrc/flash_fwd_fusedheads.cu`, float32: `csrc/attention_f32.cu`), for
+    CPU tensors the plain version. kf and vf must have qf's dtype."""
     if qf.device.type == "cpu":
+        _check_cpu_dtypes({"qf": qf, "kf": kf, "vf": vf})
         return attention_fwd_fusedheads_plain(qf, kf, vf, heads)
     if qf.dim() != 3 or kf.dim() != 3 or vf.dim() != 3:
         raise ValueError("qf, kf, vf must be (B, L, heads * head_dim)")
@@ -427,17 +430,18 @@ def flash_attention_fwd_fusedheads(qf, kf, vf, heads: int):
                          f"vf {tuple(vf.shape)}")
     if hd % heads or hd // heads > 256 or b > 65535 or heads > 65535:
         raise ValueError(f"width {hd} / heads {heads} / batch {b} outside the kernel")
-    if qf.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_fwd_fusedheads got {qf.dtype}: the fused-heads "
-                         "kernel " + _BF16_ONLY)
-    _check_cuda({"qf": qf, "kf": kf, "vf": vf}, qf, torch.bfloat16)
+    if qf.dtype not in _FUSEDHEADS:
+        raise ValueError(f"qf has dtype {qf.dtype}; the kernels take torch.bfloat16 or "
+                         "torch.float32")
+    _check_cuda({"qf": qf, "kf": kf, "vf": vf}, qf, qf.dtype)
+    source, entry, key = _FUSEDHEADS[qf.dtype]
     o = torch.empty_like(qf)
     lse = torch.empty((b, heads, lq), device=qf.device, dtype=torch.float32)
-    rc = _fusedheads_lib()(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
-                           lse.data_ptr(), b, heads, lq, lk, hd // heads, _stream(qf))
+    rc = _fwd5_lib(source, entry)(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
+                                  lse.data_ptr(), b, heads, lq, lk, hd // heads, _stream(qf))
     if rc != 0:
-        raise RuntimeError(f"flash_fwd_fusedheads launch failed: CUDA error {rc}")
-    LAUNCHES["flash_attention_fwd_fusedheads"] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
+    LAUNCHES[key] += 1
     return o, lse
 
 
@@ -541,7 +545,9 @@ def fusedheads_supported(qf, kf, heads: int) -> bool:
     packages send the same layers to the same kernels; it is no limit of the
     CUDA kernel, which tiles KV. At bf16 it passes every 77-token
     cross-attention and the self and fuser attention of the 1024-, 256- and
-    64-token levels, and refuses the 4096-token ones."""
+    64-token levels, and refuses the 4096-token ones. At float32 (K/V counted
+    at 4 bytes) it refuses the 1024-token self and fuser attention too, which
+    then take the per-head gate."""
     _, lq, hd = qf.shape
     lk = kf.shape[1]
     d = hd // heads

@@ -15,15 +15,18 @@ The VAE is converted whole: encoder, quant_conv, decoder, post_quant_conv.
 `sam_from_jax_params(tree)` takes the JAX package's SAM parameter tree and
 returns the state dict with transformers `SamModel` key names that the JAX
 side's `convert_sam` maps onto that tree: its exact inverse.
+`owlvit_from_jax_params(tree)` does the same for OWL-ViT (transformers
+`OwlViTForObjectDetection` names, the inverse of `convert_owlvit`).
 
 Checkpoint directories (diffusers / transformers layout, `<dir>/unet`,
 `<dir>/text_encoder`, `<dir>/vae`; SAM in one directory):
 `load_checkpoint(config, dir)` reads them into state dicts named as the
 port's modules name their parameters, in the file's dtype and still on the
 host (a safetensors file is mapped, not copied: `safetensors_io`);
-`load_sam_state_dict(dir)` does the same for SAM; `validate_checkpoint`
-diffs a directory against the manifests in `manifests/` (key names and
-shapes of the published checkpoints), with the JAX side's report.
+`load_sam_state_dict(dir)` and `load_owlvit_state_dict(dir)` do the same
+for SAM and OWL-ViT; `validate_checkpoint` and `validate_component` diff a
+directory against the manifests in `manifests/` (key names and shapes of the
+published checkpoints), with the JAX side's report.
 """
 
 from __future__ import annotations
@@ -194,6 +197,61 @@ def sam_from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+
+def owlvit_from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's OWL-ViT params ({"vision", "text", "text_projection",
+    "merge_layer_norm", "class_head", "box_head"}) -> a state dict of f32
+    tensors with transformers `OwlViTForObjectDetection` key names for
+    `runtime.models.build_owlvit`: the inverse of the JAX side's
+    `convert_owlvit`. Dense (in, out) -> Linear (out, in); the patch
+    embedding HWIO -> OIHW."""
+    sd = {}
+
+    def put(name, arr):
+        sd[name] = torch.tensor(np.asarray(arr, np.float32))
+
+    def lin(prefix, t):
+        put(f"{prefix}.weight", np.asarray(t["kernel"]).T)
+        if "bias" in t:
+            put(f"{prefix}.bias", t["bias"])
+
+    def norm(prefix, t):
+        put(f"{prefix}.weight", t["scale"])
+        put(f"{prefix}.bias", t["bias"])
+
+    def layers(prefix, t):
+        for key, layer in t.items():
+            if not key.startswith("layers_"):
+                continue
+            p = f"{prefix}.encoder.layers.{int(key.split('_')[1])}"
+            norm(f"{p}.layer_norm1", layer["layer_norm1"])
+            norm(f"{p}.layer_norm2", layer["layer_norm2"])
+            for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                lin(f"{p}.self_attn.{name}", layer["self_attn"][name])
+            lin(f"{p}.mlp.fc1", layer["fc1"])
+            lin(f"{p}.mlp.fc2", layer["fc2"])
+
+    vp, v = "owlvit.vision_model", tree["vision"]
+    put(f"{vp}.embeddings.patch_embedding.weight",
+        np.asarray(v["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1))
+    put(f"{vp}.embeddings.class_embedding", v["class_embedding"])
+    put(f"{vp}.embeddings.position_embedding.weight", v["position_embedding"])
+    norm(f"{vp}.pre_layernorm", v["pre_layernorm"])
+    norm(f"{vp}.post_layernorm", v["post_layernorm"])
+    layers(vp, v)
+    tp, t = "owlvit.text_model", tree["text"]
+    put(f"{tp}.embeddings.token_embedding.weight", t["token_embedding"]["embedding"])
+    put(f"{tp}.embeddings.position_embedding.weight", t["position_embedding"])
+    norm(f"{tp}.final_layer_norm", t["final_layer_norm"])
+    layers(tp, t)
+    lin("owlvit.text_projection", tree["text_projection"])
+    norm("layer_norm", tree["merge_layer_norm"])
+    for head, names in (("class_head", ("dense0", "logit_shift", "logit_scale")),
+                        ("box_head", ("dense0", "dense1", "dense2"))):
+        for name in names:
+            lin(f"{head}.{name}", tree[head][name])
+    return sd
+
 # ---- checkpoint directories -------------------------------------------------
 
 # Weight file names a component directory may hold, in the order probed.
@@ -239,6 +297,11 @@ _VAE_LEGACY = re.compile(r"(.*\.attentions\.0\.)(query|key|value|proj_attn)(\.\w
 # skips them too): the mask-prompt encoder and the top-level copy of the
 # prompt encoder's shared positional embedding.
 SAM_UNUSED_PREFIXES = ("prompt_encoder.mask_embed.", "shared_image_embedding.")
+OWLVIT_MANIFEST = "owlvit_base_patch32"
+# OwlViTForObjectDetection parameters no path reads (the JAX side's
+# convert_owlvit skips them too): CLIP's contrastive temperature and image
+# projection.
+OWLVIT_UNUSED = ("owlvit.logit_scale", "owlvit.visual_projection.weight")
 
 
 def load_manifest(name: str) -> dict[str, list[int]]:
@@ -286,6 +349,18 @@ def validate_checkpoint(model_key: str, checkpoint_dir: str) -> dict:
     return report
 
 
+
+def validate_component(manifest_name: str, component_dir: str) -> dict:
+    """Diff one component directory (SAM, OWL-ViT) against its manifest:
+    {"missing": [...], "extra": [...], "shape": [...]}, empty on a clean
+    match."""
+    want = {k: v for k, v in load_manifest(manifest_name).items() if not _ignorable(k)}
+    actual = {k: list(v.shape) for k, v in _load_state_dict(component_dir).items()
+              if not _ignorable(k)}
+    return {"missing": sorted(set(want) - set(actual)),
+            "extra": sorted(set(actual) - set(want)),
+            "shape": sorted(k for k in set(want) & set(actual) if want[k] != actual[k])}
+
 def _modern_vae(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """Legacy VAE attention names to the modern ones, (C, C, 1, 1) weights
     to (C, C)."""
@@ -331,3 +406,11 @@ def load_sam_state_dict(component_dir: str) -> dict[str, torch.Tensor]:
     dtype."""
     return {k: v for k, v in _load_state_dict(component_dir).items()
             if not k.startswith(SAM_UNUSED_PREFIXES)}
+
+
+def load_owlvit_state_dict(component_dir: str) -> dict[str, torch.Tensor]:
+    """A transformers `OwlViTForObjectDetection` checkpoint directory -> the
+    state dict of the port's `OwlViT` (OWLVIT_UNUSED and persisted
+    position-id buffers dropped), on the host in the file's dtype."""
+    return {k: v for k, v in _load_state_dict(component_dir).items()
+            if k not in OWLVIT_UNUSED and not _ignorable(k)}

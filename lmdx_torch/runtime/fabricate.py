@@ -1,11 +1,12 @@
 """Random checkpoints with the key names and shapes of the published ones.
 
     python -m lmdx_torch.runtime.fabricate --root DIR [--models KEY ...] [--sam]
-                                           [--dtype float16|float32]
+                                           [--owlvit] [--dtype float16|float32]
 
 Writes `<root>/<model--key>/{unet,text_encoder,vae}/` (diffusers file names)
-for each SD model key and, with `--sam`, `<root>/facebook--sam-vit-base/`,
-in the safetensors format, with exactly the keys and shapes of the manifests
+for each SD model key, with `--sam`, `<root>/facebook--sam-vit-base/` and,
+with `--owlvit`, `<root>/google--owlvit-base-patch32/` (153.2M values, 0.31
+GB in fp16), in the safetensors format, with exactly the keys and shapes of the manifests
 (`runtime/manifests/`). Values: norm weights 1 (a zero scale would zero every
 activation), everything else N(0, 0.02): finite numbers that exercise the
 load at production shapes, not a model. Each tensor draws from its own numpy
@@ -16,7 +17,8 @@ halves the bytes, as the fp16 variants published for these models do.
 
 The directories load with `runtime.models.load_bundle(key, <root>/<model--key>)`
 (set LMDX_ALLOW_WORD_TOKENIZER=1: a fabricated checkpoint has no tokenizer)
-and `runtime.models.load_segmenter(<root>/facebook--sam-vit-base)`.
+and `runtime.models.load_segmenter(<root>/facebook--sam-vit-base)`; the
+OWL-ViT directory with `eval.owl_vit.OwlViTDetector.from_checkpoint`.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ FILENAMES = {"unet": "diffusion_pytorch_model.safetensors",
              "vae": "diffusion_pytorch_model.safetensors",
              "text_encoder": "model.safetensors"}
 SAM_KEY = "facebook/sam-vit-base"
+OWLVIT_KEY = "google/owlvit-base-patch32"
 DTYPES = {"float16": torch.float16, "float32": torch.float32}
 
 
@@ -89,12 +92,20 @@ def fabricate_sam(root: str, dtype: torch.dtype = torch.float32) -> int:
         SAM_KEY, dtype)
 
 
+def fabricate_owlvit(root: str, dtype: torch.dtype = torch.float32) -> int:
+    return write_component(
+        convert.OWLVIT_MANIFEST,
+        os.path.join(root, OWLVIT_KEY.replace("/", "--"), "model.safetensors"),
+        OWLVIT_KEY, dtype)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--models", nargs="*", default=["gligen/diffusers-generation-text-box"],
                     choices=sorted(convert._COMPONENT_MANIFESTS))
     ap.add_argument("--sam", action="store_true", help="also facebook--sam-vit-base")
+    ap.add_argument("--owlvit", action="store_true", help="also google--owlvit-base-patch32")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     args = ap.parse_args(argv)
     dtype = DTYPES[args.dtype]
@@ -106,6 +117,9 @@ def main(argv=None) -> int:
     if args.sam:
         n = fabricate_sam(args.root, dtype)
         print(f"{SAM_KEY}: {n / 1e6:.1f}M params ({args.dtype})")
+    if args.owlvit:
+        n = fabricate_owlvit(args.root, dtype)
+        print(f"{OWLVIT_KEY}: {n / 1e6:.1f}M params ({args.dtype})")
     return 0
 
 

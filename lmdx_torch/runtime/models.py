@@ -17,7 +17,8 @@ the device, cast there, assigned; nothing is allocated twice.
 
 `build_sam` builds the SAM segmenter's network the same way (random weights
 from a seed, or a state dict with transformers `SamModel` key names);
-`load_segmenter` reads it from a checkpoint directory.
+`load_segmenter` reads it from a checkpoint directory. `build_owlvit` does
+the same for the stage-2 eval's OWL-ViT detector, in float32.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from torch import nn
 
 from ..config import SD_CONFIGS, KernelOptions, SDConfig
 from ..nn.clip import CLIPTextEncoder
+from ..nn.owlvit import OwlViT, OwlViTConfig, box_bias, owlvit_base_patch32
 from ..nn.sam import Sam, SamConfig, SamSegmenter, sam_vit_base
 from ..nn.unet import PositionNet, UNet2DCondition
 from ..nn.vae import ENCODE_HALF, AutoencoderKL
@@ -188,11 +190,9 @@ def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
     LMDX_ALLOW_WORD_TOKENIZER is set.
     dtype: compute-dtype override ("bfloat16", "float32"): "float32" is the
     reference's no-autocast precision, the one published for training-free
-    LMD. On a card the attention kernels exist for bfloat16 and float32
-    (kernels 1, 2 and 5); the head-packed and fused-heads kernels
-    (`kernels.packed_attention`, `kernels.fused_heads`) for bfloat16 only.
-    Any other dtype there, and float32 with either of those options, is
-    refused here, before the load, not in the middle of a run."""
+    LMD. On a card every attention kernel, the opt-in ones included, exists
+    for bfloat16 and float32; any other dtype there is refused here, before
+    the load, not in the middle of a run."""
     config = SD_CONFIGS[model_key]()
     if dtype is not None:
         config = dataclasses.replace(config, dtype=dtype)
@@ -203,14 +203,6 @@ def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
             raise ValueError(
                 f"dtype {config.dtype} on {device}: the port's CUDA attention kernels "
                 f"take bfloat16 or float32; run {config.dtype} with device='cpu'")
-        bf16_only = [name for name in ("packed_attention", "fused_heads")
-                     if kernels is not None and getattr(kernels, name)]
-        if torch_dtype == torch.float32 and bf16_only:
-            raise ValueError(
-                f"dtype float32 on {device} with KernelOptions {bf16_only}: the head-packed "
-                f"(kernel 3, csrc/flash_fwd_packed.cu) and fused-heads (kernel 4, "
-                f"csrc/flash_fwd_fusedheads.cu) kernels take bfloat16 only; their float32 "
-                f"forms are still to port (ROADMAP.md, section 2)")
     if checkpoint_dir is None:
         root = os.environ.get("LMDX_CHECKPOINT_DIR", "")
         candidate = os.path.join(root, model_key.replace("/", "--")) if root else ""
@@ -308,6 +300,36 @@ def load_segmenter(sam_checkpoint: str, device=None) -> SamSegmenter:
     checkpoint directory."""
     return SamSegmenter(build_sam(state_dict=convert.load_sam_state_dict(sam_checkpoint),
                                   device=device))
+
+
+def build_owlvit(config: OwlViTConfig | None = None, state_dict: dict | None = None,
+                 seed: int = 0, device=None) -> OwlViT:
+    """OWL-ViT (base-patch32 unless `config` says otherwise) in float32, from
+    a state dict with transformers `OwlViTForObjectDetection` key names
+    (`convert.load_owlvit_state_dict`) or, when None, seeded random weights
+    drawn from an explicit generator: weights ~ N(0, 1/fan_in), biases 0,
+    norm scales 1, the class, position and token embeddings N(0, 0.02^2)."""
+    device = resolve_device(device)
+    config = config or owlvit_base_patch32()
+    with torch.device(device if state_dict is None else "meta"):
+        model = OwlViT(config)
+    if state_dict is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            with torch.no_grad():
+                if "norm" in name:
+                    p.fill_(1.0 if leaf == "weight" else 0.0)
+                elif leaf == "bias":
+                    p.zero_()
+                elif "embedding" in name and "patch" not in name:
+                    p.normal_(0.0, 0.02, generator=generator)
+                else:
+                    p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+    else:
+        _assign(model, state_dict, device, lambda name: torch.float32)
+        model.box_bias = torch.from_numpy(box_bias(config.grid)).to(device)
+    return model.eval().requires_grad_(False)
 
 
 @torch.no_grad()

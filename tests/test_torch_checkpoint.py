@@ -461,20 +461,20 @@ def test_sam_checkpoint_is_discovered_like_jax(tmp_path, monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
 def test_non_bf16_on_cuda_is_refused_at_load(dtype, tmp_path):
     """What the CUDA kernels do not take is refused before reading (tmp_path
-    holds no weights): float16 (kernels 1, 2 and 5 take bf16 and float32),
-    and float32 with the bf16-only options, whose message names kernels 3
-    and 4. Float32 alone passes the gate (and then meets the missing
-    tokenizer)."""
+    holds no weights): float16 (every attention kernel takes bf16 and
+    float32). Float32 passes the dtype gate, alone and with the head-packed
+    and fused-heads options (kernels 3 and 4 have float32 forms), and then
+    meets the missing tokenizer."""
     kernels = tconfig.KernelOptions(packed_attention=True, fused_heads=True)
-    with pytest.raises(ValueError, match="bfloat16") as err:
-        tmodels.load_bundle("runwayml/stable-diffusion-v1-5", str(tmp_path), dtype=dtype,
-                            device="cuda", kernels=kernels if dtype == "float32" else None)
-    if dtype == "float32":
-        for source in ("flash_fwd_packed.cu", "flash_fwd_fusedheads.cu"):
-            assert source in str(err.value)
-        with pytest.raises(ValueError, match="tokenizer"):
+    if dtype == "float16":
+        with pytest.raises(ValueError, match="bfloat16"):
             tmodels.load_bundle("runwayml/stable-diffusion-v1-5", str(tmp_path), dtype=dtype,
                                 device="cuda")
+        return
+    for kw in ({"kernels": kernels}, {}):
+        with pytest.raises(ValueError, match="tokenizer"):
+            tmodels.load_bundle("runwayml/stable-diffusion-v1-5", str(tmp_path), dtype=dtype,
+                                device="cuda", **kw)
 
 
 # ---- (e) production shapes on the meta device -----------------------------------

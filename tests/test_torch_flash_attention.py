@@ -84,7 +84,8 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     assert fa.LAUNCHES == dict.fromkeys(
         ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_packed",
          "flash_attention_fwd_fusedheads", "flash_attention_fwd_f32",
-         "flash_attention_bwd_f32"), 0)
+         "flash_attention_bwd_f32", "flash_attention_fwd_packed_f32",
+         "flash_attention_fwd_fusedheads_f32"), 0)
     o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
     assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
 

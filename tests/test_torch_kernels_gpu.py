@@ -438,7 +438,7 @@ def test_new_wrappers_count_and_reject(cuda):
     assert fa.LAUNCHES["flash_attention_fwd_packed"] == 1
     assert fa.LAUNCHES["flash_attention_fwd"] == 0
     with pytest.raises(ValueError):
-        fa.flash_attention_fwd_packed(q.float(), k.float(), v.float())
+        fa.flash_attention_fwd_packed(q.half(), k.half(), v.half())
     qf, kf, vf, _ = _fused_inputs(2, 8, 64, 77, 40, cuda)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd_fusedheads(qf, kf, vf, 7)           # 320 % 7
@@ -568,8 +568,12 @@ def test_f32_wrappers_reject_mixed_and_other_dtypes(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(q, k, v, lse, o, do.bfloat16())
     with pytest.raises(ValueError):
-        fa.flash_attention_fwd_packed(q.reshape(1, 2, 64, 40), k.reshape(1, 2, 256, 40),
+        fa.flash_attention_fwd_packed(q.reshape(1, 2, 64, 40), k.reshape(1, 2, 256, 40).bfloat16(),
                                       v.reshape(1, 2, 256, 40))
+    qf, kf, vf = (t.reshape(1, -1, 80) for t in (q, k, v))
+    for args in ((qf, kf.bfloat16(), vf), (qf.half(), kf.half(), vf.half())):
+        with pytest.raises(ValueError):
+            fa.flash_attention_fwd_fusedheads(*args, 2)
     assert all(n == 0 for n in fa.LAUNCHES.values())
     sq, sk, sv, bh_, bw_ = _sam_inputs(2, 14, 14, 64, cuda)
     sa.reset_launch_counts()
@@ -578,3 +582,110 @@ def test_f32_wrappers_reject_mixed_and_other_dtypes(cuda):
     with pytest.raises(ValueError):
         sa.sam_attention(sq.half(), sk.half(), sv.half(), bh_, bw_)
     assert all(n == 0 for n in sa.LAUNCHES.values())
+
+
+# ---- the float32 forms of kernels 3 and 4 (csrc/attention_f32.cu) -------------
+
+F32_PACKED_SHAPES = [
+    # (batch, heads, Lq, Lk, d): float32 LMD+ with every option on at 512x512
+    # (per-box pass 8, overall pass 4, guidance 2; fuser KV L + 30)
+    (2, 8, 4096, 4126, 40),
+    (8, 8, 1024, 1024, 80),
+    (4, 8, 1024, 1054, 80),
+    (2, 5, 100, 300, 64),     # ragged q and kv tails
+    (2, 3, 130, 200, 256),    # the widest instantiation
+]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", F32_PACKED_SHAPES)
+def test_f32_packed_forward_matches_plain(no_tf32, b, h, lq, lk, d):
+    q, k, v, _ = (t.reshape(b, h, -1, d)
+                  for t in _inputs(b * h, lq, lk, d, no_tf32, seed=25, dtype=torch.float32))
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd_packed(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_packed_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd_packed_f32"] == 1
+    assert fa.LAUNCHES["flash_attention_fwd_packed"] == 0
+    _close_f32(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", F32_PACKED_SHAPES[:3])
+def test_f32_packed_forward_equals_the_per_head_f32_kernel(cuda, b, h, lq, lk, d):
+    """The start values (-1e30, 1e-30) never bite on finite inputs: O and LSE
+    are kernel 1-f32's bit for bit."""
+    q, k, v, _ = (t.reshape(b, h, -1, d)
+                  for t in _inputs(b * h, lq, lk, d, cuda, seed=26, dtype=torch.float32))
+    o, lse = fa.flash_attention_fwd_packed(q, k, v)
+    o_one, lse_one = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_one) and torch.equal(lse, lse_one)
+
+
+F32_FUSED_SHAPES = [
+    # (batch, heads, Lq, Lk, d): cross (KV 77) of every level, the self and
+    # fuser attention of the 256- and 64-token levels
+    (8, 8, 4096, 77, 40),
+    (4, 8, 1024, 77, 80),
+    (2, 8, 256, 77, 160),
+    (8, 8, 256, 286, 160),
+    (4, 8, 64, 64, 160),
+    (2, 8, 64, 94, 160),
+    (2, 3, 100, 130, 24),     # ragged tails, head_dim not a multiple of 16
+]
+
+
+def _f32_fused_inputs(b, h, lq, lk, d, device, seed):
+    return [t.float() for t in _fused_inputs(b, h, lq, lk, d, device, seed=seed)]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", F32_FUSED_SHAPES)
+def test_f32_fusedheads_forward_matches_plain(no_tf32, b, h, lq, lk, d):
+    rng = np.random.default_rng(27)
+    qf, kf, vf = (torch.from_numpy(rng.standard_normal((b, L, h * d), dtype=np.float32)).to(
+        no_tf32) for L in (lq, lk, lk))
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd_fusedheads(qf, kf, vf, h)
+    o_ref, lse_ref = fa.attention_fwd_fusedheads_plain(qf, kf, vf, h)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd_fusedheads_f32"] == 1
+    assert fa.LAUNCHES["flash_attention_fwd_fusedheads"] == 0
+    assert o.shape == qf.shape and o.dtype == torch.float32 and lse.shape == (b, h, lq)
+    _close_f32(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("which", ["packed", "fusedheads"])
+def test_f32_opt_in_kernels_are_bit_equal_from_run_to_run(cuda, which):
+    if which == "packed":
+        q, k, v, _ = (t.reshape(2, 8, -1, 40) for t in _inputs(
+            16, 4096, 4126, 40, cuda, seed=28, dtype=torch.float32))
+        first, second = (fa.flash_attention_fwd_packed(q, k, v) for _ in range(2))
+    else:
+        qf, kf, vf, _ = _f32_fused_inputs(2, 8, 256, 286, 160, cuda, seed=29)
+        first, second = (fa.flash_attention_fwd_fusedheads(qf, kf, vf, 8) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [(2, 8, 4096, 77, 40), (2, 8, 256, 286, 160),
+                                         (2, 8, 64, 94, 160)])
+def test_f32_fusedheads_autograd_runs_the_f32_backward(no_tf32, b, h, lq, lk, d):
+    """`FusedHeadsAttention` at float32: kernel 4-f32 forward, then a head
+    split and kernel 2-f32, the gradients within 1e-4 of the plain backward on
+    split heads."""
+    qf, kf, vf, g = _f32_fused_inputs(b, h, lq, lk, d, no_tf32, seed=30)
+    ins = [t.clone().requires_grad_(True) for t in (qf, kf, vf)]
+    fa.reset_launch_counts()
+    out = fa.FusedHeadsAttention.apply(*ins, h)
+    out.backward(g)
+    assert fa.LAUNCHES["flash_attention_fwd_fusedheads_f32"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd_f32"] == 1
+    assert fa.LAUNCHES["flash_attention_fwd_fusedheads"] == fa.LAUNCHES["flash_attention_bwd"] == 0
+    q, k, v, o4, g4 = (fa.split_heads(t, h).contiguous() for t in (qf, kf, vf, out.detach(), g))
+    _, lse = fa.attention_fwd_plain(q, k, v)
+    want = fa.attention_bwd_plain(q, k, v, lse, o4, g4)
+    torch.cuda.synchronize()
+    for t, w in zip(ins, want):
+        _close_f32(t.grad, fa.merge_heads(w))

@@ -44,10 +44,16 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    The float32 forms of kernels 1, 2 and 5 (`csrc/attention_f32.cu`) at
    every shape phase 9 gives them (F32_FWD_CASES, F32_BWD_CASES,
    F32_SAM_CASES), within 1e-4 * max|plain| for O and each gradient and
-   1e-4 for the LSE (full float32 on both sides: TF32 is off), bound by
-   operations at the float32 FMA rate (67 TFLOP/s), library =
-   `F.scaled_dot_product_attention` at float32 (SAM with the dense bias as
-   its mask) and the memory-efficient attention backward op.
+   1e-4 for the LSE (the plain versions in full float32: TF32 is off; the
+   kernels' products in float32 FMA or 3xTF32), each line with its error as
+   a share of max|plain|, bound by operations at 3xTF32's rate (495 / 3 = 165
+   TFLOP/s, the rate at which the tensor cores give float32 accuracy; the
+   line also gives the rate as a share of it and of the 67 TFLOP/s float32
+   FMA peak), library = `F.scaled_dot_product_attention` at float32 (SAM
+   with the dense bias as its mask) and the memory-efficient attention
+   backward op (3xTF32 itself). Each backward line names the dK/dV walk its
+   shape takes (wide, or split over warps where the wide grid has fewer than
+   132 blocks).
    The opt-in kernels, at every shape and batch the opt-in path (phase 5)
    gives them: the head-packed forward at L = 4096, d = 40 (KV = L and
    L + 30, batch 8/4/2), timed in turn with the per-head forward on the same
@@ -68,9 +74,13 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    (1024, 80), KV = L and L + 30, and must equal kernel 1-f32 bit for bit;
    the fused-heads kernel the rest. Kernel 2-f32 at the gradient shapes that
    path adds (F32_OPTIN_BWD, batch 2), `pair_stats` on float32 (x, x) at
-   every GroupNorm of the UNet (batch 8/4/2). Tolerances, bound and library
-   as for the float32 kernels above (SDPA at float32 on strided views for
-   the fused-heads forward).
+   every GroupNorm of the UNet (batch 8/4/2; bound by bytes, operations at
+   the FMA rate). Tolerances, bound and library as for the float32 kernels
+   above (SDPA at float32 on strided views for the fused-heads forward).
+   Then the tensor-core kernels' tiles no path shape reaches, checked and
+   timed outside the totals (F32_TILE_FUSED, F32_TILE_BWD): kernel 4-f32's
+   64-row q tile at head dim 160, kernel 2-f32's wide dK/dV walk at KV 77 and
+   its split walk at batch 1.
 3. LMD+ path: `run_lmd_plus_batch` on the full-width SD1.4+GLIGEN bundle
    (random weights from seed 0), 512x512, DDIM, CFG 7.5, frozen ratio 0.5,
    GLIGEN beta 0.4, CA-energy guidance with reference-CA transfer, the
@@ -193,6 +203,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
+PEAK_TF32X3_FLOPS = 495e12 / 3  # float32 products as 3xTF32 on the dense TF32 tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL_REL = 2e-2
 TOL_LSE = 1e-3
@@ -296,6 +307,11 @@ def _err(got, want, rel=TOL_REL):
     return err, ok
 
 
+def _share(got, want) -> float:
+    """max|got - want| as a share of max|want|: the margin under a gate."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
 def _bound(total: dict, flops: float, nbytes: float,
            peak_flops: float = PEAK_BF16_FLOPS) -> float:
     """Least time (ms) for the work: operations at the peak rate of their
@@ -366,10 +382,15 @@ def _add(t, ms, plain, bound, lib, err):
     t["err"] = max(t["err"], err)
 
 
-def _fmt(ms, plain, lib, bound, flops):
+def _fmt(ms, plain, lib, bound, flops, f32=False):
+    """One shape's times; at float32 the rate also as shares of the 3xTF32
+    rate (the bound's) and of the float32 FMA peak."""
+    rate = flops / ms / 1e9
+    shares = (f" = {rate * 1e12 / PEAK_TF32X3_FLOPS:.1%} of 3xTF32, "
+              f"{rate * 1e12 / PEAK_F32_FLOPS:.1%} of FMA" if f32 else "")
     return (f"{ms:.3f} ms (plain {plain:.3f}, library "
             f"{lib if lib is None else round(lib, 3)}, bound {bound:.4f}, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s)")
+            f"{rate:.1f} TFLOP/s{shares})")
 
 
 def _check_bwd(bwd, b, heads, L, lk, d, reps, dtype=None):
@@ -395,6 +416,7 @@ def _check_bwd(bwd, b, heads, L, lk, d, reps, dtype=None):
     want = fa.attention_bwd_plain(q, k, v, lse, o, do)
     torch.cuda.synchronize()
     errs = [_err(g_, w_, TOL_F32 if f32 else TOL_REL) for g_, w_ in zip(got, want)]
+    shares = [_share(g_, w_) for g_, w_ in zip(got, want)]
     if not all(ok for _, ok in errs):
         fail(f"backward{' f32' if f32 else ''} disagrees at B={b} L={L} Lk={lk} d={d}: "
              f"{[e for e, _ in errs]}")
@@ -403,7 +425,7 @@ def _check_bwd(bwd, b, heads, L, lk, d, reps, dtype=None):
     flops = 10 * bh * L * lk * d
     nbytes = (size * bh * d * (3 * L + 2 * lk) + 4 * bh * L
               + size * bh * d * (L + 2 * lk))
-    bound = _bound(bwd, flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    bound = _bound(bwd, flops, nbytes, PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS)
     ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, lse, o, do), reps)
     plain = cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, lse, o, do), reps)
     lib = None
@@ -427,9 +449,14 @@ def _check_bwd(bwd, b, heads, L, lk, d, reps, dtype=None):
                 do, q, k, v, lo, llse, cq, ck, mq, mk_, 0.0, False, seed_, off_,
                 scale=scale), reps)
     _add(bwd, ms, plain, bound, lib, max(e for e, _ in errs))
-    log(f"  bwd{' f32' if f32 else ''} B={b} h={heads} Lq={L} Lk={lk} d={d}: "
-        f"{_fmt(ms, plain, lib, bound, flops)} "
-        f"err dq/dk/dv {[f'{e:.2e}' for e, _ in errs]}")
+    walk = ""
+    if f32:
+        qs, qw = fa.f32_tc_dkdv_walk(L, lk, d, bh)
+        walk = f" [dK/dV {'split' if qw > 1 else 'wide'}: {qw} x {qs} q rows a step]"
+    log(f"  bwd{' f32' if f32 else ''} B={b} h={heads} Lq={L} Lk={lk} d={d}{walk}: "
+        f"{_fmt(ms, plain, lib, bound, flops, f32)} "
+        f"err dq/dk/dv {[f'{e:.2e}' for e, _ in errs]} "
+        f"(of max|plain| {[f'{x:.1e}' for x in shares]})")
     torch.cuda.empty_cache()
 
 
@@ -532,9 +559,10 @@ def phase_f32_kernels():
     """The float32 forms of kernels 1, 2 and 5 against their plain versions
     (full float32: TF32 is off) at every shape phase 9 gives them: O and each
     gradient within 1e-4 * max|plain|, the LSE within 1e-4. Bound: operations
-    at the float32 FMA rate; library: `F.scaled_dot_product_attention` at
-    float32 (forward; SAM with the dense (B, H, N, N) bias as its mask) and
-    the memory-efficient attention backward op."""
+    at 3xTF32's rate or bytes, the larger; library:
+    `F.scaled_dot_product_attention` at float32 (forward; SAM with the dense
+    (B, H, N, N) bias as its mask) and the memory-efficient attention
+    backward op."""
     import torch
     import torch.nn.functional as F
 
@@ -543,8 +571,9 @@ def phase_f32_kernels():
 
     heads, f32 = 8, torch.float32
     fwd, bwd, sam = _totals(), _totals(), _totals()
-    log(f"  float32 kernels: bound = operations at the float32 FMA rate "
-        f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s) or bytes at {PEAK_BYTES / 1e12:.2f} TB/s, "
+    log(f"  float32 kernels: bound = operations at 3xTF32's rate "
+        f"({PEAK_TF32X3_FLOPS / 1e12:.0f} TFLOP/s; the float32 FMA peak is "
+        f"{PEAK_F32_FLOPS / 1e12:.0f}) or bytes at {PEAK_BYTES / 1e12:.2f} TB/s, "
         f"the larger; tolerance {TOL_F32} * max|plain|, LSE {TOL_LSE_F32}")
     for L, d in FLASH_LEVELS:
         reps = 3 if L == 4096 else 20
@@ -559,11 +588,12 @@ def phase_f32_kernels():
             if not (ok_o and e_l <= TOL_LSE_F32):
                 fail(f"forward f32 disagrees at B={b} L={L} Lk={lk} d={d}: |dO|={e_o} "
                      f"|dLSE|={e_l}")
+            share = _share(o, o_ref)
             del o_ref, lse_ref
             bh = b * heads
             flops = 4 * bh * L * lk * d
             nbytes = 4 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
-            bound = _bound(fwd, flops, nbytes, PEAK_F32_FLOPS)
+            bound = _bound(fwd, flops, nbytes, PEAK_TF32X3_FLOPS)
             ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
             plain = cuda_ms(lambda: fa.attention_fwd_plain(q, k, v), reps)
             torch.cuda.empty_cache()
@@ -571,7 +601,8 @@ def phase_f32_kernels():
                 q, k, v), reps)
             _add(fwd, ms, plain, bound, lib, e_o)
             log(f"  fwd f32 B={b} h={heads} Lq={L} Lk={lk} d={d}: "
-                f"{_fmt(ms, plain, lib, bound, flops)} err O {e_o:.2e} LSE {e_l:.2e}")
+                f"{_fmt(ms, plain, lib, bound, flops, True)} err O {e_o:.2e} "
+                f"({share:.1e} of max|plain|) LSE {e_l:.2e}")
             del q, k, v, o, lse
             torch.cuda.empty_cache()
         for b, extra in F32_BWD_CASES:
@@ -593,7 +624,7 @@ def phase_f32_kernels():
         del o_ref
         flops = 4 * bh * n * n * d
         nbytes = 4 * bh * n * d * 4 + 4 * bh * n * 2 * g
-        bound = _bound(sam, flops, nbytes, PEAK_F32_FLOPS)
+        bound = _bound(sam, flops, nbytes, PEAK_TF32X3_FLOPS)
         ms = cuda_ms(lambda: sa.sam_attention(q, k, v, bias_h, bias_w), reps)
         plain = cuda_ms(lambda: sa.sam_attention_plain(q, k, v, bias_h, bias_w), reps)
         torch.cuda.empty_cache()
@@ -603,7 +634,7 @@ def phase_f32_kernels():
         del mask
         _add(sam, ms, plain, bound, lib, err)
         log(f"  sam f32 B*H={bh} N={n} d={d} grid {g}x{g}: "
-            f"{_fmt(ms, plain, lib, bound, flops)}, err O {err:.2e}")
+            f"{_fmt(ms, plain, lib, bound, flops, True)}, err O {err:.2e}")
         del q, k, v, bias_h, bias_w, o
         torch.cuda.empty_cache()
     return {"flash_attention_fwd_f32": fwd, "flash_attention_bwd_f32": bwd,
@@ -781,6 +812,50 @@ def phase_optin_kernels():
 F32_PACKED_LEVELS = ((4096, 40), (1024, 80))
 F32_FUSED_CASES = [c for c in FUSED_CASES if c[0] != 1024 or c[1] == 77]
 F32_OPTIN_BWD = [(L, L + e, d) for L, d in FLASH_LEVELS for e in (0, 30)] + BWD_SHORT_KV
+# The tensor-core kernels' tiles no path shape reaches, (batch, Lq, Lk,
+# heads * d) and (batch, Lq, Lk, d): the 64-row q tile at head dim 160; the
+# wide dK/dV walk at KV 77 (batch 17: 3 x 136 wide blocks) and the split one
+# at batch 1.
+F32_TILE_FUSED = [(2, 257, 286, 1280), (2, 320, 77, 1280)]
+F32_TILE_BWD = [(17, 64, 77, 160), (1, 4096, 77, 40), (1, 64, 94, 160)]
+
+
+def _fused_f32_case(fused, b, heads, L, lk, hd, reps=20):
+    """Kernel 4-f32 against its plain version at one shape, with times and
+    the library call (SDPA at float32 on strided (B, h, L, d) views)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+
+    d = hd // heads
+    gen = torch.Generator(device="cuda").manual_seed(L + lk + hd + b + 1)
+    qf, kf, vf = (torch.randn((b, rows, hd), generator=gen, device="cuda")
+                  for rows in (L, lk, lk))
+    o, lse = fa.flash_attention_fwd_fusedheads(qf, kf, vf, heads)
+    o_ref, lse_ref = fa.attention_fwd_fusedheads_plain(qf, kf, vf, heads)
+    torch.cuda.synchronize()
+    e_o, ok_o = _err(o, o_ref, TOL_F32)
+    e_l = (lse - lse_ref).abs().max().item()
+    if not (ok_o and e_l <= TOL_LSE_F32):
+        fail(f"fused-heads forward f32 disagrees at B={b} Lq={L} Lk={lk} hd={hd}: "
+             f"|dO|={e_o} |dLSE|={e_l}")
+    share = _share(o, o_ref)
+    del o, lse, o_ref, lse_ref
+    flops = 4 * b * heads * L * lk * d
+    nbytes = 4 * b * hd * (2 * L + 2 * lk) + 4 * b * heads * L
+    bound = _bound(fused, flops, nbytes, PEAK_TF32X3_FLOPS)
+    ms = cuda_ms(lambda: fa.flash_attention_fwd_fusedheads(qf, kf, vf, heads), reps)
+    plain = cuda_ms(lambda: fa.attention_fwd_fusedheads_plain(qf, kf, vf, heads), reps)
+    q4, k4, v4 = (t.view(b, -1, heads, d).transpose(1, 2) for t in (qf, kf, vf))
+    lib = _library_ms(fused, "fused-heads forward f32",
+                      lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
+    _add(fused, ms, plain, bound, lib, e_o)
+    log(f"  fusedheads f32 B={b} h={heads} Lq={L} Lk={lk} hd={hd} [q tile "
+        f"{32 if L <= 256 else 64} rows]: {_fmt(ms, plain, lib, bound, flops, True)}, "
+        f"err O {e_o:.2e} ({share:.1e} of max|plain|) LSE {e_l:.2e}")
+    del qf, kf, vf, q4, k4, v4
+    torch.cuda.empty_cache()
 
 
 def phase_f32_optin_kernels(bwd, stats):
@@ -789,9 +864,11 @@ def phase_f32_optin_kernels(bwd, stats):
     the LSE within 1e-4), the packed one also equal bit for bit to kernel
     1-f32 on the same inputs; the float32 backward at phase 10's gradient
     shapes and `pair_stats` on float32 (x, x) at every GroupNorm of the UNet,
-    their totals added to `bwd` and `stats`. Bound: operations at the float32
-    FMA rate or bytes, the larger; library: `F.scaled_dot_product_attention`
-    at float32 (on strided (B, h, L, d) views for the fused-heads forward)."""
+    their totals added to `bwd` and `stats`; then the tensor-core kernels'
+    tiles no path shape reaches, outside the totals. Bound: operations at
+    3xTF32's rate (attention; the FMA rate for `pair_stats`) or bytes, the
+    larger; library: `F.scaled_dot_product_attention` at float32 (on strided
+    (B, h, L, d) views for the fused-heads forward)."""
     import torch
     import torch.nn.functional as F
 
@@ -821,7 +898,7 @@ def phase_f32_optin_kernels(bwd, stats):
                 bh = b * heads
                 flops = 4 * bh * L * lk * d
                 nbytes = 4 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
-                bound = _bound(packed, flops, nbytes, PEAK_F32_FLOPS)
+                bound = _bound(packed, flops, nbytes, PEAK_TF32X3_FLOPS)
                 ms = cuda_ms(lambda: fa.flash_attention_fwd_packed(q, k, v), reps)
                 plain = cuda_ms(lambda: fa.attention_fwd_packed_plain(q, k, v), reps)
                 torch.cuda.empty_cache()
@@ -829,45 +906,28 @@ def phase_f32_optin_kernels(bwd, stats):
                                   lambda: F.scaled_dot_product_attention(q, k, v), reps)
                 _add(packed, ms, plain, bound, lib, e_o)
                 log(f"  packed f32 B={b} h={heads} Lq={L} Lk={lk} d={d}: "
-                    f"{_fmt(ms, plain, lib, bound, flops)} (equal to kernel 1-f32 bit for "
+                    f"{_fmt(ms, plain, lib, bound, flops, True)} (equal to kernel 1-f32 bit for "
                     f"bit) err O {e_o:.2e} LSE {e_l:.2e}")
                 del q, k, v
                 torch.cuda.empty_cache()
 
     for L, lk, hd in F32_FUSED_CASES:
-        d = hd // heads
         for b in OPTIN_BATCHES:
-            gen = torch.Generator(device="cuda").manual_seed(L + lk + hd + b + 1)
-            qf, kf, vf = (torch.randn((b, rows, hd), generator=gen, device="cuda")
-                          for rows in (L, lk, lk))
-            o, lse = fa.flash_attention_fwd_fusedheads(qf, kf, vf, heads)
-            o_ref, lse_ref = fa.attention_fwd_fusedheads_plain(qf, kf, vf, heads)
-            torch.cuda.synchronize()
-            e_o, ok_o = _err(o, o_ref, TOL_F32)
-            e_l = (lse - lse_ref).abs().max().item()
-            if not (ok_o and e_l <= TOL_LSE_F32):
-                fail(f"fused-heads forward f32 disagrees at B={b} Lq={L} Lk={lk} hd={hd}: "
-                     f"|dO|={e_o} |dLSE|={e_l}")
-            del o, lse, o_ref, lse_ref
-            flops = 4 * b * heads * L * lk * d
-            nbytes = 4 * b * hd * (2 * L + 2 * lk) + 4 * b * heads * L
-            bound = _bound(fused, flops, nbytes, PEAK_F32_FLOPS)
-            ms = cuda_ms(lambda: fa.flash_attention_fwd_fusedheads(qf, kf, vf, heads), 20)
-            plain = cuda_ms(lambda: fa.attention_fwd_fusedheads_plain(qf, kf, vf, heads), 20)
-            q4, k4, v4 = (t.view(b, -1, heads, d).transpose(1, 2) for t in (qf, kf, vf))
-            lib = _library_ms(fused, "fused-heads forward f32",
-                              lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
-            _add(fused, ms, plain, bound, lib, e_o)
-            log(f"  fusedheads f32 B={b} h={heads} Lq={L} Lk={lk} hd={hd}: "
-                f"{_fmt(ms, plain, lib, bound, flops)}, err O {e_o:.2e} LSE {e_l:.2e}")
-            del qf, kf, vf, q4, k4, v4
-            torch.cuda.empty_cache()
+            _fused_f32_case(fused, b, heads, L, lk, hd)
 
     before = bwd["ms"]
     for L, lk, d in F32_OPTIN_BWD:
         _check_bwd(bwd, 2, heads, L, lk, d, 3 if L == 4096 else 20, dtype=f32)
     log(f"  bwd f32: {bwd['ms'] - before:.3f} ms over the {len(F32_OPTIN_BWD)} shapes of the "
         f"float32 opt-in path")
+    # The tensor-core kernels' other tiles, checked and timed outside the
+    # paths' totals: the 64-row q tile at head dim 160 (Lq just above 256)
+    # and both dK/dV walks at batch 17 and 1 of the KV-77 and 64-token shapes.
+    tiles = _totals()
+    for b, L, lk, hd in F32_TILE_FUSED:
+        _fused_f32_case(tiles, b, heads, L, lk, hd)
+    for b, L, lk, d in F32_TILE_BWD:
+        _check_bwd(tiles, b, heads, L, lk, d, 20, dtype=f32)
     for c, n in STAT_CASES:
         for b in OPTIN_BATCHES:
             _stat_case(stats, b, c, n, f32, True)

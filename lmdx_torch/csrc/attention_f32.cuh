@@ -1,45 +1,46 @@
-// Float32 attention body: the float32 forms of kernels 1 to 5.
+// Float32 attention body on float32 FMA: the float32 forms of kernels 1, 3
+// and 5 (kernels 2-f32 and 4-f32 run on the tensor cores, attention_f32_tc.cuh).
 //
 // The Pallas kernels (lmdx/nn/pallas/flash_attention.py::_pallas_attention,
-// l.107, _pallas_attention_bwd, l.384, _pallas_attention_packed, l.211, and
-// _pallas_attention_fusedheads, l.622; lmdx/nn/pallas/sam_attention.py::
+// l.107, and _pallas_attention_packed, l.211; lmdx/nn/pallas/sam_attention.py::
 // _pallas_sam_attention, l.101) take any dtype. At float32 they keep every
 // product and every probability in float32, and so does the reference's
 // no-autocast run (LMD's published precision). The bf16 body
-// (attention_fwd.cuh, flash_bwd.cu) cannot serve them: its mma.sync
-// m16n8k16 takes bf16 operands only, and it rounds P and dS to bf16 for the
-// tensor cores. This body keeps scores, P, dS, O, the LSE and every gradient
-// in float32 and multiplies with float32 FMA on the CUDA cores. No TF32:
-// a single TF32 pass keeps ~3 decimal digits.
+// (attention_fwd.cuh) cannot serve them: its mma.sync m16n8k16 takes bf16
+// operands only, and it rounds P to bf16 for the tensor cores. This body
+// keeps scores, P, O and the LSE in float32 and multiplies with float32 FMA
+// on the CUDA cores; these three kernels take no TF32 product (a single TF32
+// pass keeps ~3 decimal digits; 3xTF32 is attention_f32_tc.cuh's).
 //
-// What bounds it on an H100. Each kernel does 4 (forward) or 10 (backward)
-// Lq Lk d operations on a few bytes per input element, far above the card's
-// ~20 float32 operations per byte of HBM: it is bound by operations at the
-// card's float32 FMA rate (67 TFLOP/s, H100 SXM, outside the tensor cores),
-// and the (Lq, Lk) probabilities never reach device memory.
+// What bounds it on an H100. Each kernel does 4 Lq Lk d operations on a few
+// bytes per input element, far above the card's ~20 float32 operations per
+// byte of HBM: it is bound by operations at the card's float32 FMA rate (67
+// TFLOP/s, H100 SXM, outside the tensor cores), and the (Lq, Lk)
+// probabilities never reach device memory.
 //
-// Design, the simple form: one block of 256 threads (16 x 16) per q tile
-// (forward, dQ) or KV tile (dK/dV) and batch*head. The tile's rows and the
-// walked KV (or q) tiles sit in shared memory as float32 rows, zero-filled
-// past L and d; each thread computes a register micro-tile of the scores
-// (rows ty*TM .. ty*TM+TM-1, columns tx + 16 j) by FMA over the head dim,
-// the online softmax reduces each row over the 16 threads of a half-warp
-// with shuffles, the probabilities go through shared memory, and each thread
-// accumulates TM rows x DP/16 columns (tx + 16 c) of its output in
-// registers. Scores are in log2 units (scale * log2 e folded into one
-// multiply, ex2 for exp) and the LSE leaves in natural units, as in the
-// bf16 body; the row max starts at the caller's m_init and the denominator
-// is clamped at its l_min ((-inf, 0): kernels 1, 4 and 5; the head-packed
-// kernel 3 passes its reference's (-1e30, 1e-30)), and keys >= Lk (the
-// GLIGEN fuser's L + 30) are masked to -inf. The forward reads a head
-// through a view (F32HeadView: pointers and row strides), so the fused-heads
-// kernel walks the projection layout (B, L, heads * d) in place. Rows of a float32 tile lie DP + 1 floats apart
-// (an odd stride: the 16 rows that the 16 tx threads read at one column fall
-// in 16 banks); probability tiles 4 floats wider than their width (the two
-// half-warps' rows fall in opposite halves of the banks). No cp.async ring,
-// no double buffering: tiles load with plain coalesced loads between two
-// barriers. Shared memory above 48 KB is granted with cudaFuncSetAttribute.
-// Not done: 3xTF32 on mma.sync m16n8k8, vector shared loads, a load ring.
+// Design, the simple form: one block of 256 threads (16 x 16) per 64-row q
+// tile and batch*head. The tile's rows and the walked 64-row KV tiles sit in
+// shared memory as float32 rows, zero-filled past L and d; each thread
+// computes a register micro-tile of the scores (rows ty*TM .. ty*TM+TM-1,
+// columns tx + 16 j) by FMA over the head dim, the online softmax reduces
+// each row over the 16 threads of a half-warp with shuffles, the
+// probabilities go through shared memory, and each thread accumulates TM
+// rows x DP/16 columns (tx + 16 c) of its output in registers. Scores are in
+// log2 units (scale * log2 e folded into one multiply, ex2 for exp) and the
+// LSE leaves in natural units, as in the bf16 body; the row max starts at
+// the caller's m_init and the denominator is clamped at its l_min ((-inf,
+// 0): kernels 1 and 5; the head-packed kernel 3 passes its reference's
+// (-1e30, 1e-30)), and keys >= Lk (the GLIGEN fuser's L + 30) are masked to
+// -inf. The forward reads a head through a view (F32HeadView: pointers and
+// row strides; the tensor-core fused-heads kernel takes the same view). Rows
+// of a float32 tile lie DP + 1 floats apart (an odd stride: the 16 rows that
+// the 16 tx threads read at one column fall in 16 banks); probability tiles
+// 4 floats wider than their width (the two half-warps' rows fall in opposite
+// halves of the banks). No cp.async ring, no double buffering: tiles load
+// with plain coalesced loads between two barriers. Shared memory above 48 KB
+// is granted with cudaFuncSetAttribute. Not done for these three kernels:
+// 3xTF32 on mma.sync m16n8k8 (the tensor-core body's, K2 in ROADMAP), vector
+// shared loads, a load ring.
 #pragma once
 
 #include "flash_common.cuh"
@@ -48,18 +49,13 @@ namespace lmdx {
 namespace {
 
 constexpr int kF32Threads = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int kF32BK = 64;        // KV rows of a forward / dQ tile, KV rows of a dK/dV block
+constexpr int kF32BK = 64;        // KV rows of a forward tile
 constexpr int kF32BQ = 64;        // q rows of a forward block
 
 // Floats between the rows of a (rows, DP) tile.
 __host__ __device__ constexpr int f32_ld(int dp) { return dp + 1; }
 // Floats between the rows of a probability tile of `cols` columns.
 __host__ __device__ constexpr int f32_ldp(int cols) { return cols + 4; }
-// q rows of a dQ block and of a step of the dK/dV walk: 64 up to head dim 80,
-// 32 above (flash_bwd.cu's bwd_bq), so that the backward's tiles fit 227 KB
-// at head dim 256 and its dK/dV sums run over the q steps the bf16 backward
-// takes (attention_bwd_tiled_plain follows both).
-__host__ __device__ constexpr int f32_bwd_rows(int dp) { return dp <= 80 ? 64 : 32; }
 
 // Rows [row0, row0 + ROWS) of an (L, d) float32 matrix whose rows lie ld
 // floats apart into a shared tile of DP columns; rows >= L and columns >= d
@@ -288,209 +284,6 @@ __device__ __forceinline__ void attention_f32_fwd_body(const F32HeadView& hv, in
         if (col < d) hv.o[(size_t)r * hv.ldo + col] = acc[i][c] * inv;
       }
       if (hv.lse != nullptr && tx == 0) hv.lse[r] = m[i] * kLn2 + logf(li);
-    }
-  }
-}
-
-template <int DP>
-__host__ __device__ constexpr size_t f32_dq_smem_bytes() {
-  constexpr int BQ = f32_bwd_rows(DP);
-  return sizeof(float) * ((size_t)(2 * BQ + 2 * kF32BK) * f32_ld(DP) +
-                          (size_t)BQ * f32_ldp(kF32BK) + 2 * BQ);
-}
-
-// dQ block: q rows [blockIdx.x * BQ, +BQ) of batch*head blockIdx.y. Writes
-// delta = rowsum(dO * O) of its rows (read by the dK/dV kernel, launched
-// after it on the same stream) and dQ = sum over 64-row KV tiles of dS K,
-// dS = P (dO V^T - delta) scale, P = exp2(s scale log2 e - lse log2 e).
-template <int DP>
-__device__ __forceinline__ void attention_f32_bwd_dq_body(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ o, const float* __restrict__ g, const float* __restrict__ lse,
-    float* __restrict__ delta, float* __restrict__ dq, int Lq, int Lk, int d, float scale) {
-  constexpr int BQ = f32_bwd_rows(DP), TM = BQ / 16, TN = kF32BK / 16, NC = DP / 16;
-  constexpr int LD = f32_ld(DP), LDP = f32_ldp(kF32BK);
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sG = sQ + BQ * LD;
-  float* sK = sG + BQ * LD;
-  float* sV = sK + kF32BK * LD;
-  float* sS = sV + kF32BK * LD;
-  float* sL = sS + BQ * LDP;
-  float* sD = sL + BQ;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const float scale_log2 = scale * kLog2e;
-  q += bh * Lq * d;
-  o += bh * Lq * d;
-  g += bh * Lq * d;
-  dq += bh * Lq * d;
-  k += bh * Lk * d;
-  v += bh * Lk * d;
-  lse += bh * Lq;
-  delta += bh * Lq;
-
-  f32_load_rows<DP, BQ>(sQ, q, d, q0, Lq, d);
-  f32_load_rows<DP, BQ>(sG, g, d, q0, Lq, d);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty * TM + i, gr = q0 + r;
-    float part = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (gr < Lq && col < d) part = fmaf(sG[r * LD + col], o[(size_t)gr * d + col], part);
-    }
-    part = half_warp_sum(part);
-    if (tx == 0) {
-      sD[r] = part;
-      sL[r] = gr < Lq ? lse[gr] * kLog2e : 0.0f;
-      if (gr < Lq) delta[gr] = part;
-    }
-  }
-
-  float acc[TM][NC];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
-  for (int k0 = 0; k0 < Lk; k0 += kF32BK) {
-    __syncthreads();  // sD and sL are written; the previous tile's sK and sS are read
-    f32_load_rows<DP, kF32BK>(sK, k, d, k0, Lk, d);
-    f32_load_rows<DP, kF32BK>(sV, v, d, k0, Lk, d);
-    __syncthreads();
-    float s[TM][TN], dp[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.0f;
-    }
-    f32_abt<DP, TM, TN>(s, sQ, sK, ty, tx);
-    f32_abt<DP, TM, TN>(dp, sG, sV, ty, tx);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = ty * TM + i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const float p = key < Lk ? ex2(fmaf(s[i][j], scale_log2, -sL[r])) : 0.0f;
-        sS[r * LDP + tx + 16 * j] = p * (dp[i][j] - sD[r]) * scale;
-      }
-    }
-    __syncthreads();
-    f32_pv<DP, TM, kF32BK, LDP>(acc, sS, sK, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = q0 + ty * TM + i;
-    if (r < Lq) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < d) dq[(size_t)r * d + col] = acc[i][c];
-      }
-    }
-  }
-}
-
-template <int DP>
-__host__ __device__ constexpr size_t f32_dkdv_smem_bytes() {
-  constexpr int QS = f32_bwd_rows(DP);
-  return sizeof(float) * ((size_t)(2 * kF32BK + 2 * QS) * f32_ld(DP) +
-                          (size_t)2 * kF32BK * f32_ldp(QS) + 2 * QS);
-}
-
-// dK/dV block: KV rows [blockIdx.x * 64, +64) of batch*head blockIdx.y,
-// walking q in steps of f32_bwd_rows(DP) rows: P^T and dS^T of the step on
-// the micro-tile (rows: keys, columns: q rows), then dV += P^T dO and
-// dK += dS^T Q, both held in registers for the whole walk.
-template <int DP>
-__device__ __forceinline__ void attention_f32_bwd_dkdv_body(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int Lq, int Lk, int d, float scale) {
-  constexpr int QS = f32_bwd_rows(DP), TM = kF32BK / 16, TN = QS / 16, NC = DP / 16;
-  constexpr int LD = f32_ld(DP), LDQ = f32_ldp(QS);
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kF32BK * LD;
-  float* sQ = sV + kF32BK * LD;
-  float* sG = sQ + QS * LD;
-  float* sP = sG + QS * LD;
-  float* sS = sP + kF32BK * LDQ;
-  float* sL = sS + kF32BK * LDQ;
-  float* sD = sL + QS;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * kF32BK;
-  const float scale_log2 = scale * kLog2e;
-  q += bh * Lq * d;
-  g += bh * Lq * d;
-  k += bh * Lk * d;
-  v += bh * Lk * d;
-  dk += bh * Lk * d;
-  dv += bh * Lk * d;
-  lse += bh * Lq;
-  delta += bh * Lq;
-
-  f32_load_rows<DP, kF32BK>(sK, k, d, k0, Lk, d);
-  f32_load_rows<DP, kF32BK>(sV, v, d, k0, Lk, d);
-  float dk_acc[TM][NC], dv_acc[TM][NC];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
-  }
-  for (int q0 = 0; q0 < Lq; q0 += QS) {
-    __syncthreads();  // the previous step's sQ, sG, sP and sS are read
-    f32_load_rows<DP, QS>(sQ, q, d, q0, Lq, d);
-    f32_load_rows<DP, QS>(sG, g, d, q0, Lq, d);
-    for (int i = threadIdx.x; i < QS; i += kF32Threads) {
-      const int gr = q0 + i;
-      sL[i] = gr < Lq ? lse[gr] * kLog2e : 0.0f;
-      sD[i] = gr < Lq ? delta[gr] : 0.0f;
-    }
-    __syncthreads();
-    float st[TM][TN], dpt[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) st[i][j] = dpt[i][j] = 0.0f;
-    }
-    f32_abt<DP, TM, TN>(st, sK, sQ, ty, tx);
-    f32_abt<DP, TM, TN>(dpt, sV, sG, ty, tx);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = ty * TM + i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = tx + 16 * j;
-        const float p = q0 + c < Lq ? ex2(fmaf(st[i][j], scale_log2, -sL[c])) : 0.0f;
-        sP[r * LDQ + c] = p;
-        sS[r * LDQ + c] = p * (dpt[i][j] - sD[c]) * scale;
-      }
-    }
-    __syncthreads();
-    f32_pv<DP, TM, QS, LDQ>(dv_acc, sP, sG, ty, tx);
-    f32_pv<DP, TM, QS, LDQ>(dk_acc, sS, sQ, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = k0 + ty * TM + i;
-    if (r < Lk) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < d) {
-          dk[(size_t)r * d + col] = dk_acc[i][c];
-          dv[(size_t)r * d + col] = dv_acc[i][c];
-        }
-      }
     }
   }
 }

@@ -29,9 +29,12 @@ gradient from `flash_attention_bwd` (the fused-heads one after a head split).
 forward body that the three forward kernels and SAM's share
 (`csrc/attention_fwd.cuh`), and `attention_bwd_tiled_plain` that of the
 backward's two kernels (`csrc/flash_bwd.cu`); the CPU tests hold them against
-the plain versions. At float32 inputs they round nothing and are the
-arithmetic of the float32 kernels (`csrc/attention_f32.cuh`), which walk the
-same tiles.
+the plain versions. At float32 inputs `attention_fwd_tiled_plain` rounds
+nothing and is the arithmetic of the float32 FMA body (`csrc/attention_f32.cuh`:
+kernels 1, 3 and 5 at float32), which walks the same tiles. The float32
+fused-heads forward and backward run on the tensor cores in 3xTF32
+(`csrc/attention_f32_tc.cuh`); `attention_fwd_fusedheads_tc_plain` and
+`attention_bwd_tc_plain` repeat their steps (`matmul_3xtf32` over their tiles).
 
 Dispatch (the attention layers call it for their untapped attentions):
 
@@ -231,21 +234,20 @@ def bwd_q_step(d: int) -> int:
 
 
 def attention_bwd_tiled_plain(q, k, v, lse, o, do):
-    """(dq, dk, dv) by the arithmetic of the CUDA backward (`csrc/flash_bwd.cu`),
-    step by step: delta = rowsum(dO * O) in f32; scores in log2 units,
-    p = exp2(s * scale * log2(e) - lse * log2(e)) (the LSE is in natural
-    units); dS = p (dP - delta) scale in f32; p and dS rounded to the inputs'
-    dtype for the products that read them, every sum in f32; dV and dK summed
-    over q steps of `bwd_q_step(d)` rows (the dK/dV kernel's walk), dQ over
-    64-row KV tiles (the dQ kernel's walk); the outputs rounded once. q:
-    (B, h, Lq, d), k/v: (B, h, Lk, d), lse (B, h, Lq). The kernel's masks (p =
-    0 for keys >= Lk and q rows >= Lq) have no counterpart here: the tensors
-    have no such rows. At float32 inputs nothing is rounded: this is then the
-    float32 backward's (`csrc/attention_f32.cuh`) arithmetic, whose dQ
-    kernel walks 64-row KV tiles and whose dK/dV kernel walks q in the same
-    steps of `bwd_q_step(d)` rows. The kernels are held to
-    `attention_bwd_plain`; this one shows on the CPU that their steps give
-    the same function."""
+    """(dq, dk, dv) by the arithmetic of the bf16 CUDA backward
+    (`csrc/flash_bwd.cu`), step by step: delta = rowsum(dO * O) in f32;
+    scores in log2 units, p = exp2(s * scale * log2(e) - lse * log2(e)) (the
+    LSE is in natural units); dS = p (dP - delta) scale in f32; p and dS
+    rounded to the inputs' dtype for the products that read them, every sum
+    in f32; dV and dK summed over q steps of `bwd_q_step(d)` rows (the dK/dV
+    kernel's walk), dQ over 64-row KV tiles (the dQ kernel's walk); the
+    outputs rounded once. q: (B, h, Lq, d), k/v: (B, h, Lk, d), lse (B, h,
+    Lq). The kernel's masks (p = 0 for keys >= Lk and q rows >= Lq) have no
+    counterpart here: the tensors have no such rows. At float32 inputs it
+    rounds nothing and is the one-pass function in these tiles; the float32
+    backward's own steps (3xTF32 products, its tiles) are
+    `attention_bwd_tc_plain`'s. The kernel is held to `attention_bwd_plain`;
+    this one shows on the CPU that its steps give the same function."""
     lq, lk, d = q.shape[2], k.shape[2], q.shape[-1]
     scale = d ** -0.5
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
@@ -264,6 +266,158 @@ def attention_bwd_tiled_plain(q, k, v, lse, o, do):
         rows = slice(q0, q0 + step)
         dv = dv + torch.matmul(p_r[:, :, rows].transpose(-1, -2), gf[:, :, rows])
         dk = dk + torch.matmul(ds_r[:, :, rows].transpose(-1, -2), qf[:, :, rows])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def tf32_round(x):
+    """float32 rounded to TF32 as `cvt.rna.tf32.f32` does: to nearest, ties
+    away from zero, the 13 low mantissa bits cleared (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a, b):
+    """a @ b as the float32 tensor-core kernels take it (3xTF32): each
+    operand split into big = tf32(x) and small = tf32(x - big), the product
+    summed in float32 as small_a big_b + big_a small_b + big_a big_b (the
+    small_a small_b term, below 2^-22 of the product, dropped). Each partial
+    product of two TF32 values is exact in float32."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    a_small, b_small = tf32_round(a.float() - a_big), tf32_round(b.float() - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+# Tiles of the float32 tensor-core kernels (`csrc/attention_f32_tc.cuh`),
+# which set the order of their sums: the fused-heads forward walks 32-key
+# tiles over `f32_tc_fwd_kv_groups` warp groups, the dQ kernel tiles of
+# `f32_tc_dq_kv_tile(d)` keys over `f32_tc_dq_kv_groups` groups, the dK/dV
+# kernel q as `f32_tc_dkdv_walk` says.
+F32_TC_FWD_KV_TILE = 32
+_SMS = 132  # a grid below this many blocks splits its work further (kTcSplitBelow)
+
+
+def f32_tc_fwd_kv_groups(batch: int, heads: int, lq: int, lk: int, d: int) -> int:
+    """Warp groups that split the float32 fused-heads forward's KV tiles
+    (`tc_fwd_kv_groups`): 1 where its grid of 32-row q tiles holds 132 blocks
+    or more, at Lq > 256 (64-row tiles), above head dim 160 and for one tile;
+    else 4 for up to 4 tiles above head dim 80, else 2. Group w takes tiles
+    w, w + groups, ... with its own online softmax; group 0 merges the others
+    in order."""
+    tiles = -(-lk // F32_TC_FWD_KV_TILE)
+    if -(-lq // 32) * heads * batch >= _SMS or lq > 256 or d > 160 or tiles == 1:
+        return 1
+    return 4 if tiles <= 4 and d > 80 else 2
+
+
+def f32_tc_dq_kv_groups(bh: int, lq: int, lk: int, d: int) -> int:
+    """Warp groups that split the float32 dQ kernel's KV tiles
+    (`tc_dq_kv_groups`), as the forward's: 1 where its grid of 32-row q
+    tiles holds 132 blocks or more, outside head dims 81 to 160 (64-row q
+    tiles up to 80) and for one tile; else 4 for up to 4 tiles, else 2. The
+    groups' partial dQ are added in group order."""
+    tiles = -(-lk // f32_tc_dq_kv_tile(d))
+    if -(-lq // 32) * bh >= _SMS or d <= 80 or d > 160 or tiles == 1:
+        return 1
+    return 4 if tiles <= 4 else 2
+
+
+def f32_tc_dq_kv_tile(d: int) -> int:
+    """Keys a KV tile of the float32 dQ kernel (`tc_dq_bk`): 32 up to the
+    padded head dim 80, 16 above."""
+    return 32 if d <= 80 else 16
+
+
+def f32_tc_dkdv_walk(lq: int, lk: int, d: int, bh: int) -> tuple[int, int]:
+    """(q rows a warp takes a step, warps splitting the q walk) of the
+    float32 dK/dV kernel at batch*heads `bh` (`TcDkdvWide` / `TcDkdvSplit`):
+    the wide shape (64 keys a block up to the padded head dim 80, 32 above;
+    32 or 16 q rows a step) where its grid holds 132 blocks or more,
+    else 16 keys a block with 4 (2 above head dim 80) warps over 16-row
+    slices, their partial sums added in warp order."""
+    if -(-lk // (64 if d <= 80 else 32)) * bh >= _SMS:
+        return (32 if d <= 80 else 16), 1
+    return 16, (4 if d <= 80 else 2)
+
+
+def attention_fwd_fusedheads_tc_plain(qf, kf, vf, heads: int):
+    """(o, lse) by the arithmetic of the float32 fused-heads kernel
+    (`csrc/attention_f32_tc.cuh`), step by step: per head, 32-key tiles dealt
+    to `f32_tc_fwd_kv_groups` groups; in each group scores by `matmul_3xtf32`
+    in log2 units (`scale * log2(e)` folded into one multiply), an online
+    softmax from -inf with `exp2`, O += P V by `matmul_3xtf32` on the
+    unrounded probabilities; the groups' (m, l, O) merged in group order; O
+    times 1 / l; the LSE in natural units. Shapes as
+    `attention_fwd_fusedheads_plain`."""
+    q, k, v = (split_heads(t, heads).float() for t in (qf, kf, vf))
+    lk, d = k.shape[2], q.shape[-1]
+    scale_log2 = d ** -0.5 * _LOG2E
+    groups = f32_tc_fwd_kv_groups(qf.shape[0], heads, q.shape[2], lk, d)
+    states = []
+    for w in range(groups):
+        m = torch.full(q.shape[:3], float("-inf"), device=q.device, dtype=torch.float32)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(q)
+        for k0 in range(w * F32_TC_FWD_KV_TILE, lk, groups * F32_TC_FWD_KV_TILE):
+            tile = slice(k0, k0 + F32_TC_FWD_KV_TILE)
+            s = matmul_3xtf32(q, k[:, :, tile].transpose(-1, -2)) * scale_log2
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + matmul_3xtf32(p, v[:, :, tile])
+            m = m_new
+        states.append((m, l, acc))
+    m, l, acc = states[0]
+    for m_w, l_w, acc_w in states[1:]:
+        m_new = torch.maximum(m, m_w)
+        a, b = torch.exp2(m - m_new), torch.exp2(m_w - m_new)
+        l, acc, m = l * a + l_w * b, acc * a[..., None] + acc_w * b[..., None], m_new
+    o = acc * (1.0 / l)[..., None]
+    return merge_heads(o).to(qf.dtype), m * _LN2 + torch.log(l)
+
+
+def attention_bwd_tc_plain(q, k, v, lse, o, do):
+    """(dq, dk, dv) by the arithmetic of the float32 backward
+    (`csrc/attention_f32_tc.cuh`), step by step: delta = rowsum(dO * O);
+    p = exp2(s * scale * log2(e) - lse * log2(e)); dS = p (dP - delta) scale;
+    every product by `matmul_3xtf32` (S, dP, dQ += dS K over KV tiles of
+    `f32_tc_dq_kv_tile(d)` keys dealt to `f32_tc_dq_kv_groups` groups, their
+    partial dQ added in group order; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+    dK += dS^T Q over the q slices of `f32_tc_dkdv_walk`, one partial sum a
+    warp, the partials added in warp order). Shapes as `attention_bwd_plain`;
+    float32."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale = d ** -0.5
+    scale_log2 = scale * _LOG2E
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
+    lse2 = lse.float() * _LOG2E
+    delta = (gf * of).sum(-1)
+    step = f32_tc_dq_kv_tile(d)
+    groups = f32_tc_dq_kv_groups(b * h, lq, lk, d)
+    dq = torch.zeros_like(qf)
+    for w in range(groups):
+        dq_w = torch.zeros_like(qf)
+        for k0 in range(w * step, lk, groups * step):
+            kt, vt = kf[:, :, k0:k0 + step], vf[:, :, k0:k0 + step]
+            p = torch.exp2(matmul_3xtf32(qf, kt.transpose(-1, -2)) * scale_log2
+                           - lse2[..., None])
+            ds = p * (matmul_3xtf32(gf, vt.transpose(-1, -2)) - delta[..., None]) * scale
+            dq_w = dq_w + matmul_3xtf32(ds, kt)
+        dq = dq_w if w == 0 else dq + dq_w
+    qs, qw = f32_tc_dkdv_walk(lq, lk, d, b * h)
+    parts = [(torch.zeros_like(kf), torch.zeros_like(vf)) for _ in range(qw)]
+    for i, q0 in enumerate(range(0, lq, qs)):
+        rows = slice(q0, q0 + qs)
+        qt, gt = qf[:, :, rows], gf[:, :, rows]
+        pt = torch.exp2(matmul_3xtf32(kf, qt.transpose(-1, -2)) * scale_log2
+                        - lse2[:, :, None, rows])
+        dst = pt * (matmul_3xtf32(vf, gt.transpose(-1, -2)) - delta[:, :, None, rows]) * scale
+        dk_w, dv_w = parts[i % qw]
+        parts[i % qw] = (dk_w + matmul_3xtf32(dst, qt), dv_w + matmul_3xtf32(pt, gt))
+    dk, dv = parts[0]
+    for dk_w, dv_w in parts[1:]:
+        dk, dv = dk + dk_w, dv + dv_w
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

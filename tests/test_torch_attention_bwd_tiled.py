@@ -91,12 +91,12 @@ def test_tiled_backward_matches_pallas_interpret(lq, lk, d):
         np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=TOL_PALLAS, atol=TOL_PALLAS)
 
 
-# The float32 backward (lmdx_torch/csrc/attention_f32.cuh): its dQ kernel
-# walks 64-row KV tiles, its dK/dV kernel q in steps of `bwd_q_step(d)` rows,
-# and it rounds nothing, so at float32 inputs `attention_bwd_tiled_plain` is
-# its arithmetic. Held to the Pallas backward in interpret mode at float32
-# at the UNet's head dims with the fuser's L + 30 keys (40, 80: 64-row steps;
-# 160: 32-row steps).
+# At float32 inputs `attention_bwd_tiled_plain` rounds nothing: the one-pass
+# function summed in the bf16 kernels' tiles. Held to the Pallas backward in
+# interpret mode at float32 at the UNet's head dims with the fuser's L + 30
+# keys (40, 80: 64-row steps; 160: 32-row steps). The float32 kernel's own
+# steps (3xTF32) are `attention_bwd_tc_plain`'s, held in
+# tests/test_torch_f32_tc.py.
 @pytest.mark.parametrize("lq,lk,d", [(64, 94, 40), (100, 130, 80), (96, 126, 160)])
 def test_float32_backward_matches_pallas_interpret_at_float32(lq, lk, d):
     q, k, v, g = _qkvg(lq, lk, d, seed=6)

@@ -15,7 +15,9 @@ f32 sums of pair_stats to 1e-3 * max|plain| (f32 sums in another order).
 The float32 forms of the flash forward, its backward and SAM attention
 (`csrc/attention_f32.cu`) keep everything in float32: each output within
 1e-4 * max|plain| and the LSE within 1e-4 (f32 sums in another order and
-ex2.approx for exp; TF32 off for the plain versions' products).
+ex2.approx for exp; the backward's and the fused-heads forward's products in
+3xTF32, which drops terms below 2^-22 of a product; TF32 off for the plain
+versions' products).
 """
 
 import numpy as np
@@ -689,3 +691,115 @@ def test_f32_fusedheads_autograd_runs_the_f32_backward(no_tf32, b, h, lq, lk, d)
     torch.cuda.synchronize()
     for t, w in zip(ins, want):
         _close_f32(t.grad, fa.merge_heads(w))
+
+
+# ---- the float32 tensor-core kernels (csrc/attention_f32_tc.cuh) --------------
+
+TC_FUSED_SHAPES = [
+    # (batch, heads, Lq, Lk, d): the guidance batch at the 256- and 64-token
+    # levels (32-row q tiles; KV tiles split over 2 warp groups at 256 and
+    # 286 keys, 4 at 64, 77 and 94), head dim 160; batch 4 (one group); the
+    # 64-row tile at head dim 160 (Lq just above 256)
+    (2, 8, 256, 286, 160),
+    (2, 8, 256, 256, 160),
+    (2, 8, 256, 77, 160),
+    (2, 8, 64, 77, 160),
+    (2, 8, 64, 64, 160),
+    (2, 8, 64, 94, 160),
+    (4, 8, 256, 286, 160),
+    (2, 8, 257, 286, 160),
+]
+TC_BWD_SHAPES = [
+    # (batch*heads, Lq, Lk, d) at batch 2: the 256- and 64-token levels at
+    # head dim 160 (dQ's KV tiles over 2 or 4 warp groups; the split dK/dV
+    # walk over column pairs, and the wide one at 286 keys: 144 blocks), the
+    # KV-77 gradients at head dims 40 and 80 (dK/dV split over four warps),
+    # and a batch whose KV-77 grid is wide
+    (16, 256, 286, 160),
+    (16, 256, 256, 160),
+    (16, 256, 77, 160),
+    (16, 64, 77, 160),
+    (16, 64, 64, 160),
+    (16, 64, 94, 160),
+    (16, 4096, 77, 40),
+    (16, 1024, 77, 80),
+    (136, 64, 77, 160),
+]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", TC_FUSED_SHAPES)
+def test_f32_fusedheads_tc_tiles_match_plain(no_tf32, b, h, lq, lk, d):
+    qf, kf, vf, _ = _f32_fused_inputs(b, h, lq, lk, d, no_tf32, seed=31)
+    o, lse = fa.flash_attention_fwd_fusedheads(qf, kf, vf, h)
+    o_ref, lse_ref = fa.attention_fwd_fusedheads_plain(qf, kf, vf, h)
+    torch.cuda.synchronize()
+    _close_f32(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", TC_BWD_SHAPES)
+def test_f32_backward_tc_tiles_match_plain(no_tf32, bh, lq, lk, d):
+    q, k, v, do = _inputs(bh, lq, lk, d, no_tf32, seed=32, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    want = fa.attention_bwd_plain(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close_f32(g, w)
+
+
+@pytest.mark.parametrize("which", ["q", "kv", "all"])
+@pytest.mark.parametrize("b,h,lq,lk,d", [(2, 8, 256, 286, 160), (2, 8, 4096, 77, 40),
+                                         (2, 3, 100, 130, 24)])
+def test_f32_fusedheads_takes_pointers_off_16_bytes(cuda, b, h, lq, lk, d, which):
+    """A projection that starts 4 bytes into its allocation takes the 4-byte
+    cp.async pieces and gives the same O and LSE, bit for bit."""
+    qf, kf, vf, _ = _f32_fused_inputs(b, h, lq, lk, d, cuda, seed=33)
+    want = fa.flash_attention_fwd_fusedheads(qf, kf, vf, h)
+    if which in ("q", "all"):
+        qf = _shifted(qf)
+    if which in ("kv", "all"):
+        kf, vf = _shifted(kf), _shifted(vf)
+    got = fa.flash_attention_fwd_fusedheads(qf, kf, vf, h)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+
+
+@pytest.mark.parametrize("which", ["q", "kv", "o_do", "all"])
+@pytest.mark.parametrize("bh,lq,lk,d", [(16, 256, 286, 160), (16, 4096, 77, 40),
+                                        (3, 100, 300, 20)])
+def test_f32_backward_takes_pointers_off_16_bytes(cuda, bh, lq, lk, d, which):
+    """Float32 tensors that start off 16 bytes take the 4-byte pieces and give
+    the same dQ, dK, dV, bit for bit (both dK/dV walks among the shapes)."""
+    q, k, v, do = _inputs(bh, lq, lk, d, cuda, seed=34, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    if which in ("q", "all"):
+        q = _shifted(q)
+    if which in ("kv", "all"):
+        k, v = _shifted(k), _shifted(v)
+    if which in ("o_do", "all"):
+        o, do = _shifted(o), _shifted(do)
+    if which == "all":
+        lse = _shifted(lse)
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_f32_tc_kernels_match_their_step_by_step_plain_versions(no_tf32):
+    """`attention_fwd_fusedheads_tc_plain` and `attention_bwd_tc_plain` repeat
+    the kernels' 3xTF32 steps; the kernels meet them within 1e-4 too (their
+    tensor cores' own sums truncate where the plain versions round)."""
+    qf, kf, vf, _ = _f32_fused_inputs(2, 8, 256, 286, 160, no_tf32, seed=35)
+    o, lse = fa.flash_attention_fwd_fusedheads(qf, kf, vf, 8)
+    o_ref, lse_ref = fa.attention_fwd_fusedheads_tc_plain(qf, kf, vf, 8)
+    q, k, v, do = _inputs(16, 1024, 77, 80, no_tf32, seed=36, dtype=torch.float32)
+    o4, lse4 = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, lse4, o4, do)
+    want = fa.attention_bwd_tc_plain(q, k, v, lse4, o4, do)
+    torch.cuda.synchronize()
+    _close_f32(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    for g, w in zip(got, want):
+        _close_f32(g, w)

@@ -14,9 +14,11 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    seven), one nvcc per source, all started together, into build/kernels/,
    and prints each kernel's registers and spilled bytes (`ptxas -v`). Fails
-   if an attention kernel (the forward body's four kernels, the backward's
-   two, and the float32 body's six) instantiated for a head dim the paths
-   use (48, 64, 80, 160) spills.
+   if an attention kernel (the bf16 forward body's four kernels, the bf16
+   backward's two, and the float32 tensor-core body's four: the forward
+   kernel of kernels 1-f32, 3-f32 and 4-f32, SAM's 5-f32, and 2-f32's dQ and
+   dK/dV kernels) instantiated for a head dim the paths use (40 for the
+   float32 forward, 48, 64, 80, 160) spills.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes. Flash attention: 8 heads; (L, head_dim) =
    (4096, 40), (1024, 80), (256, 160); at every batch and KV the driven
@@ -44,8 +46,10 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    The float32 forms of kernels 1, 2 and 5 (`csrc/attention_f32.cu`) at
    every shape phase 9 gives them (F32_FWD_CASES, F32_BWD_CASES,
    F32_SAM_CASES), within 1e-4 * max|plain| for O and each gradient and
-   1e-4 for the LSE (the plain versions in full float32: TF32 is off; the
-   kernels' products in float32 FMA or 3xTF32), each line with its error as
+   1e-4 for the LSE (the plain versions in full float32: TF32 is off; every
+   float32 kernel's products in 3xTF32 on the tensor cores, kernels 1-f32,
+   3-f32, 4-f32 and 5-f32 on one forward body of `csrc/attention_f32_tc.cuh`,
+   2-f32 on its dQ and dK/dV bodies), each line with its error as
    a share of max|plain|, bound by operations at 3xTF32's rate (495 / 3 = 165
    TFLOP/s, the rate at which the tensor cores give float32 accuracy; the
    line also gives the rate as a share of it and of the 67 TFLOP/s float32
@@ -78,9 +82,10 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    the FMA rate). Tolerances, bound and library as for the float32 kernels
    above (SDPA at float32 on strided views for the fused-heads forward).
    Then the tensor-core kernels' tiles no path shape reaches, checked and
-   timed outside the totals (F32_TILE_FUSED, F32_TILE_BWD): kernel 4-f32's
-   64-row q tile at head dim 160, kernel 2-f32's wide dK/dV walk at KV 77 and
-   its split walk at batch 1.
+   timed outside the totals (F32_TILE_FUSED, F32_TILE_BWD, F32_TILE_FWD):
+   kernel 4-f32's 64-row q tile at head dim 160, kernel 2-f32's wide dK/dV
+   walk at KV 77 and its split walk at batch 1, kernel 1-f32 at head dim 256
+   (and 3-f32 equal to it there).
 3. LMD+ path: `run_lmd_plus_batch` on the full-width SD1.4+GLIGEN bundle
    (random weights from seed 0), 512x512, DDIM, CFG 7.5, frozen ratio 0.5,
    GLIGEN beta 0.4, CA-energy guidance with reference-CA transfer, the
@@ -264,9 +269,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# Head dims the attention kernels are instantiated for and the three paths
-# use (40 -> 48, 64, 80, 160): none of their kernels may spill.
-PATH_HEAD_DIMS = ("48", "64", "80", "160")
+# Head dims the attention kernels are instantiated for and the paths use
+# (40 -> 48 for the bf16 kernels and the float32 backward, 40 for the float32
+# forward; 64, 80, 160): none of their kernels may spill.
+PATH_HEAD_DIMS = ("40", "48", "64", "80", "160")
 ATTENTION_SOURCES = ("flash_fwd", "flash_bwd", "sam_attention", "flash_fwd_packed",
                      "flash_fwd_fusedheads", "attention_f32")
 
@@ -555,6 +561,43 @@ def phase_sam_kernel():
     return t
 
 
+def _f32_fwd_case(fwd, b, heads, L, lk, d, reps):
+    """Kernel 1-f32 against its plain version at one shape (O within 1e-4 *
+    max|plain|, the LSE within 1e-4), with times and the library call (SDPA
+    at float32), its totals added to `fwd`."""
+    import torch
+    import torch.nn.functional as F
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+
+    q, k, v, _ = _inputs(b, heads, L, lk, d, seed=L + lk + b, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    e_o, ok_o = _err(o, o_ref, TOL_F32)
+    e_l = (lse - lse_ref).abs().max().item()
+    if not (ok_o and e_l <= TOL_LSE_F32):
+        fail(f"forward f32 disagrees at B={b} L={L} Lk={lk} d={d}: |dO|={e_o} |dLSE|={e_l}")
+    share = _share(o, o_ref)
+    del o_ref, lse_ref
+    bh = b * heads
+    flops = 4 * bh * L * lk * d
+    nbytes = 4 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
+    bound = _bound(fwd, flops, nbytes, PEAK_TF32X3_FLOPS)
+    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
+    plain = cuda_ms(lambda: fa.attention_fwd_plain(q, k, v), reps)
+    torch.cuda.empty_cache()
+    lib = _library_ms(fwd, "forward f32", lambda: F.scaled_dot_product_attention(q, k, v), reps)
+    _add(fwd, ms, plain, bound, lib, e_o)
+    groups = fa.f32_tc_fwd_kv_groups(1, bh, L, lk, d)
+    log(f"  fwd f32 B={b} h={heads} Lq={L} Lk={lk} d={d} [q tile {32 if L <= 256 else 64} "
+        f"rows, {groups} KV group{'s' if groups > 1 else ''}]: "
+        f"{_fmt(ms, plain, lib, bound, flops, True)} err O {e_o:.2e} "
+        f"({share:.1e} of max|plain|) LSE {e_l:.2e}")
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+
+
 def phase_f32_kernels():
     """The float32 forms of kernels 1, 2 and 5 against their plain versions
     (full float32: TF32 is off) at every shape phase 9 gives them: O and each
@@ -578,33 +621,7 @@ def phase_f32_kernels():
     for L, d in FLASH_LEVELS:
         reps = 3 if L == 4096 else 20
         for b, extra in F32_FWD_CASES:
-            lk = L + extra
-            q, k, v, _ = _inputs(b, heads, L, lk, d, seed=L + lk + b, dtype=f32)
-            o, lse = fa.flash_attention_fwd(q, k, v)
-            o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
-            torch.cuda.synchronize()
-            e_o, ok_o = _err(o, o_ref, TOL_F32)
-            e_l = (lse - lse_ref).abs().max().item()
-            if not (ok_o and e_l <= TOL_LSE_F32):
-                fail(f"forward f32 disagrees at B={b} L={L} Lk={lk} d={d}: |dO|={e_o} "
-                     f"|dLSE|={e_l}")
-            share = _share(o, o_ref)
-            del o_ref, lse_ref
-            bh = b * heads
-            flops = 4 * bh * L * lk * d
-            nbytes = 4 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
-            bound = _bound(fwd, flops, nbytes, PEAK_TF32X3_FLOPS)
-            ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
-            plain = cuda_ms(lambda: fa.attention_fwd_plain(q, k, v), reps)
-            torch.cuda.empty_cache()
-            lib = _library_ms(fwd, "forward f32", lambda: F.scaled_dot_product_attention(
-                q, k, v), reps)
-            _add(fwd, ms, plain, bound, lib, e_o)
-            log(f"  fwd f32 B={b} h={heads} Lq={L} Lk={lk} d={d}: "
-                f"{_fmt(ms, plain, lib, bound, flops, True)} err O {e_o:.2e} "
-                f"({share:.1e} of max|plain|) LSE {e_l:.2e}")
-            del q, k, v, o, lse
-            torch.cuda.empty_cache()
+            _f32_fwd_case(fwd, b, heads, L, L + extra, d, reps)
         for b, extra in F32_BWD_CASES:
             _check_bwd(bwd, b, heads, L, L + extra, d, reps, dtype=f32)
 
@@ -818,6 +835,9 @@ F32_OPTIN_BWD = [(L, L + e, d) for L, d in FLASH_LEVELS for e in (0, 30)] + BWD_
 # at batch 1.
 F32_TILE_FUSED = [(2, 257, 286, 1280), (2, 320, 77, 1280)]
 F32_TILE_BWD = [(17, 64, 77, 160), (1, 4096, 77, 40), (1, 64, 94, 160)]
+# Kernel 1-f32 (and 3-f32, which must equal it) at head dim 256, which
+# lmdx_flash_fwd_f32 accepts and no path gives: (batch, Lq, Lk, d).
+F32_TILE_FWD = [(1, 256, 286, 256)]
 
 
 def _fused_f32_case(fused, b, heads, L, lk, hd, reps=20):
@@ -928,6 +948,15 @@ def phase_f32_optin_kernels(bwd, stats):
         _fused_f32_case(tiles, b, heads, L, lk, hd)
     for b, L, lk, d in F32_TILE_BWD:
         _check_bwd(tiles, b, heads, L, lk, d, 20, dtype=f32)
+    for b, L, lk, d in F32_TILE_FWD:
+        _f32_fwd_case(tiles, b, heads, L, lk, d, 20)
+        q, k, v, _ = _inputs(b, heads, L, lk, d, seed=L + lk + b + 3, dtype=f32)
+        if not all(torch.equal(x, y) for x, y in zip(fa.flash_attention_fwd_packed(q, k, v),
+                                                     fa.flash_attention_fwd(q, k, v))):
+            fail(f"packed forward f32 differs from kernel 1-f32 at B={b} L={L} Lk={lk} d={d}")
+        log(f"  packed f32 B={b} h={heads} Lq={L} Lk={lk} d={d}: equal to kernel 1-f32 bit for "
+            f"bit")
+        del q, k, v
     for c, n in STAT_CASES:
         for b in OPTIN_BATCHES:
             _stat_case(stats, b, c, n, f32, True)

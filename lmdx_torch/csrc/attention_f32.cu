@@ -1,108 +1,102 @@
 // Entry points of the float32 attention: the float32 forms of kernels 1 to
-// 5. Kernels 1-f32, 3-f32 and 5-f32 run on the FMA body (attention_f32.cuh),
-// kernels 2-f32 and 4-f32 on the tensor cores in 3xTF32
-// (attention_f32_tc.cuh). Each header says what bounds its kernels and how
-// they are built.
+// 5, all on the tensor cores in 3xTF32 (attention_f32_tc.cuh says what bounds
+// them, how 3xTF32 keeps float32 accuracy, and how the bodies are built).
 //
 // - lmdx_flash_fwd_f32 replaces lmdx/nn/pallas/flash_attention.py::
 //   _pallas_attention (l.107) at float32: o = softmax(q k^T / sqrt(d)) v and
 //   the row LSE, q (BH, Lq, d), k/v (BH, Lk, d), o (BH, Lq, d), lse (BH, Lq),
-//   all float32 row-major. Kernel attn_f32_fwd_kernel (FMA), bound by
-//   operations at the float32 FMA rate (67 TFLOP/s on an H100 SXM).
-// - lmdx_flash_bwd_f32 replaces flash_attention.py::_pallas_attention_bwd
-//   (l.384) at float32: dq, dk, dv from q, k, v, o, dO and the forward's LSE
-//   (natural units), with delta (BH, Lq) as scratch. Kernels
-//   attn_f32_bwd_dq_kernel<DP, WK> (first: delta and dQ; WK warp groups over
-//   the KV tiles where its grid has fewer than 132 blocks, head dims 81 to
-//   160) and
-//   attn_f32_bwd_dkdv_kernel<DP, KG, CS, QW, QS> (after it on the same
-//   stream: dK and dV; the wide shape, or the split one where the wide grid
-//   has fewer than 132 blocks), 3xTF32 tensor cores, each output element
-//   with one owner, no atomics; bound by operations at 495 / 3 = 165 TFLOP/s.
+//   all float32 row-major. Kernel attn_f32_fwd_kernel<DP, WQ, WK> (kernel
+//   1-f32) from the start values (-inf, 0).
 // - lmdx_flash_fwd_packed_f32 replaces flash_attention.py::
 //   _pallas_attention_packed (l.211) at float32: lmdx_flash_fwd_f32's
 //   function from the reference's start values (row max from -1e30, the
 //   denominator clamped at 1e-30), q (B, H, Lq, d), k/v (B, H, Lk, d), lse
-//   (B, H, Lq). Kernel attn_f32_fwd_packed_kernel (FMA), launched as kernel
-//   1-f32 is, one block per (q tile, batch*head): the TPU kernel's
-//   block-diagonal K/V of up to 3 heads filled its 128-wide matrix unit,
-//   which buys nothing here (flash_fwd_packed.cu says why). On finite inputs
-//   the start values never bite, so O and LSE equal lmdx_flash_fwd_f32's bit
-//   for bit.
+//   (B, H, Lq). Kernel 3-f32 is kernel 1-f32's launch from those values, on
+//   the same tile (one rule, tc_fwd_kv_groups over B * H heads): the TPU
+//   kernel's block-diagonal K/V of up to 3 heads filled its 128-wide matrix
+//   unit, which buys nothing here (flash_fwd_packed.cu says why). On finite
+//   inputs the start values never bite, so O and LSE equal
+//   lmdx_flash_fwd_f32's bit for bit.
 // - lmdx_flash_fwd_fusedheads_f32 replaces flash_attention.py::
 //   _pallas_attention_fusedheads (l.622) at float32: the same function per
 //   head on the projection layout, qf/of (B, Lq, H*d), kf/vf (B, Lk, H*d),
 //   read and written in place (row stride H*d, offset head*d), lse
-//   (B, H, Lq). Kernel attn_f32_fwd_fusedheads_kernel<DP, WQ, WK>, 3xTF32
-//   tensor cores, grid (q tiles of 16 WQ rows, heads, batch), WQ 2 at
-//   Lq <= 256 and 4 above, WK warp groups over the KV tiles where the grid
-//   has fewer than 132 blocks; bound by operations at 165 TFLOP/s. Its gradient
+//   (B, H, Lq). Kernel 4-f32: attn_f32_fwd_kernel on that view. Its gradient
 //   splits heads and runs lmdx_flash_bwd_f32, as the TPU side's
 //   _fusedheads_bwd does.
 // - lmdx_sam_attention_f32 replaces lmdx/nn/pallas/sam_attention.py::
 //   _pallas_sam_attention (l.101) at float32: o = softmax(q k^T / sqrt(d) +
 //   bias_h[q, k / gw] + bias_w[q, k % gw]) v over N = gh * gw tokens, the
-//   bias added unscaled, no LSE. Kernel sam_f32_kernel (FMA).
+//   bias added unscaled, no LSE. Kernel sam_f32_kernel<DP, WQ, WK> (kernel
+//   5-f32): the forward body with the RelPosBias policy, the q tile's bias
+//   rows staged in shared memory after the ring.
+// - lmdx_flash_bwd_f32 replaces flash_attention.py::_pallas_attention_bwd
+//   (l.384) at float32: dq, dk, dv from q, k, v, o, dO and the forward's LSE
+//   (natural units), with delta (BH, Lq) as scratch. Kernels
+//   attn_f32_bwd_dq_kernel<DP, WK> (first: delta and dQ; WK warp groups over
+//   the KV tiles where its grid has fewer than 132 blocks, head dims 81 to
+//   160) and attn_f32_bwd_dkdv_kernel<DP, KG, CS, QW, QS> (after it on the
+//   same stream: dK and dV; the wide shape, or the split one where the wide
+//   grid has fewer than 132 blocks).
+// Every kernel is bound by operations at 495 / 3 = 165 TFLOP/s (3xTF32).
 //
-// The FMA kernels declare a minimum of one block an SM: without it ptxas held
-// the forward and SAM kernels at head dim 64 to 64 registers and spilled
-// (48-60 bytes); with it none spills (ptxas -v on the card; shared memory,
-// not registers, sets how many blocks an SM holds). The tensor-core kernels
-// declare the blocks their shared memory lets an SM hold (tc_blocks: two
-// where it fits, else one); that caps none of them below 255 registers.
-// Head dims are padded to 48, 64, 80, 160 (256 for the flash kernels) by
-// zero-filled columns. Each launch sets its shared memory (above 48 KB) and
-// returns cudaGetLastError.
+// The forward kernels' blocks on the paths (q tiles of 16 WQ rows; KV tiles
+// of 32 keys, WK warp groups over them below 132 blocks) and shared memory a
+// block (Q and a two-stage K/V ring; ~160-255 registers a thread hold two
+// 128-thread blocks an SM, three at 160 or fewer):
+// - 1-f32 and 3-f32, 8 heads: 4096 tokens (d 40, DP 40, WQ 4) 64 x 8 B
+//   blocks, 512 to 4096 at batch 1 to 8 (33 KB); 1024 tokens (d 80, WQ 4)
+//   16 x 8 B, 128 at batch 1 (no split above 256 rows; 63 KB); 256 tokens
+//   (d 160, WQ 2) 8 x 8 B, 192 and 384 at batch 3 and 6 (102.5 KB), 64 and
+//   128 at batch 1 and 2 (WK 2: 184.5 KB, 1 an SM).
+// - 4-f32: the 256- and 64-token levels (d 160, WQ 2) 8 x 8 B and 2 x 8 B
+//   (below 132 blocks WK 2 or 4: 184.5 KB, 1 an SM); the 77-token
+//   cross-attention (3 KV tiles) at every level.
+// - 5-f32, 12 heads, d 64 (DP 64): the global layers' 64 x 64 grid in q tiles
+//   of 64 rows, 64 x 12 = 768 blocks an image (51 KB + 35 KB of bias rows);
+//   the 14 x 14 windows in q tiles of 32 rows, 7 x 300 = 2100 blocks an image
+//   (42.5 KB + 5.5 KB; the last KV tile of a window holds 4 keys).
+// DP 256 (no path): 195 / 162.5 KB; it spills (the 32 x 4 accumulators of O
+// and the pairs' loads), recorded by chip_smoke.py's phase 1, not gated.
+//
+// The tensor-core kernels declare the blocks their shared memory lets an SM
+// hold (tc_blocks: two where it fits, else one); that caps none of them below
+// 255 registers. Each launch sets its shared memory (above 48 KB) and returns
+// cudaGetLastError.
 #include "attention_f32_tc.cuh"
 
 namespace lmdx {
 namespace {
 
-template <int DP>
-__global__ void __launch_bounds__(kF32Threads, 1)
-attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    float* __restrict__ lse, int Lq, int Lk, int d, float scale_log2) {
-  attention_f32_fwd_body<DP>(f32_head_of_bhld(q, k, v, o, lse, blockIdx.y, Lq, Lk, d),
-                             blockIdx.x * kF32BQ, Lq, Lk, d, scale_log2, F32NoBias{},
-                             -INFINITY, 0.0f);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kF32Threads, 1)
-attn_f32_fwd_packed_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ lse, int Lq, int Lk, int d, float scale_log2) {
-  attention_f32_fwd_body<DP>(f32_head_of_bhld(q, k, v, o, lse, blockIdx.y, Lq, Lk, d),
-                             blockIdx.x * kF32BQ, Lq, Lk, d, scale_log2, F32NoBias{},
-                             -1e30f, 1e-30f);
-}
-
+// Kernels 1-f32, 3-f32 and 4-f32: q tile blockIdx.x of head blockIdx.y of
+// batch blockIdx.z. Rows lie ld floats apart: ld == d is a (B * heads, L, d)
+// tensor (kernels 1-f32 and 3-f32, launched as one batch of B * H heads), a
+// head L * d floats after the last; otherwise the projection layout
+// (B, L, heads * d) (kernel 4-f32), a head d floats after the last.
 template <int DP, int WQ, int WK>
 __global__ void __launch_bounds__(32 * WQ * WK, tc_blocks(tc_fwd_smem_bytes<DP, WQ, WK>()))
-attn_f32_fwd_fusedheads_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
-                               const float* __restrict__ vf, float* __restrict__ of,
-                               float* __restrict__ lse, int heads, int Lq, int Lk, int d,
-                               float scale_log2) {
+attn_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                    int heads, int Lq, int Lk, int d, int ld, float scale_log2, float m_init,
+                    float l_min) {
   const int head = blockIdx.y, b = blockIdx.z;
-  const int hd = heads * d;
   const int bh = b * heads + head;
-  const F32HeadView hv{qf + (size_t)b * Lq * hd + head * d,
-                       kf + (size_t)b * Lk * hd + head * d,
-                       vf + (size_t)b * Lk * hd + head * d,
-                       of + (size_t)b * Lq * hd + head * d,
-                       lse + (size_t)bh * Lq,
-                       hd, hd, hd, hd, bh};
-  attention_f32_tc_fwd_body<DP, WQ, WK>(hv, blockIdx.x * 16 * WQ, Lq, Lk, d, scale_log2);
+  const size_t hq = ld == d ? (size_t)Lq * d : d, hk = ld == d ? (size_t)Lk * d : d;
+  const size_t bq = (size_t)b * Lq * ld + head * hq, bk = (size_t)b * Lk * ld + head * hk;
+  const F32HeadView hv{q + bq, k + bk, v + bk, o + bq, lse + (size_t)bh * Lq, ld, ld, ld, ld, bh};
+  attention_f32_tc_fwd_body<DP, WQ, WK>(hv, blockIdx.x * 16 * WQ, Lq, Lk, d, scale_log2, NoBias{},
+                                        m_init, l_min);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kF32Threads, 1)
+// Kernel 5-f32: q tile blockIdx.x of batch*head blockIdx.y, (BH, N, d).
+template <int DP, int WQ, int WK>
+__global__ void __launch_bounds__(32 * WQ * WK, tc_blocks(tc_fwd_smem_bytes<DP, WQ, WK>()))
 sam_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int N, int d,
-               float scale_log2, F32RelPosBias bias) {
-  attention_f32_fwd_body<DP>(f32_head_of_bhld(q, k, v, o, nullptr, blockIdx.y, N, N, d),
-                             blockIdx.x * kF32BQ, N, N, d, scale_log2, bias, -INFINITY, 0.0f);
+               float scale_log2, RelPosBias bias) {
+  attention_f32_tc_fwd_body<DP, WQ, WK>(f32_head_of_bhld(q, k, v, o, nullptr, blockIdx.y, N, N, d),
+                                        blockIdx.x * 16 * WQ, N, N, d, scale_log2, bias,
+                                        -INFINITY, 0.0f);
 }
 
 template <int DP, int WK>
@@ -139,48 +133,59 @@ bool f32_args_ok(int bh, int lq, int lk, int d) {
   return bh > 0 && lq > 0 && lk > 0 && d > 0 && d <= 256 && bh <= 65535;
 }
 
-template <int DP>
-int launch_fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse, int bh,
-                   int lq, int lk, int d, cudaStream_t st) {
-  const size_t smem = f32_fwd_smem_bytes<DP>(F32NoBias{});
-  cudaError_t err = f32_set_smem(attn_f32_fwd_kernel<DP>, smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_f32_fwd_kernel<DP><<<dim3((lq + kF32BQ - 1) / kF32BQ, bh), kF32Threads, smem, st>>>(
-      q, k, v, o, lse, lq, lk, d, f32_scale(d) * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-template <int DP>
-int launch_fwd_packed_f32(const float* q, const float* k, const float* v, float* o, float* lse,
-                          int bh, int lq, int lk, int d, cudaStream_t st) {
-  const size_t smem = f32_fwd_smem_bytes<DP>(F32NoBias{});
-  cudaError_t err = f32_set_smem(attn_f32_fwd_packed_kernel<DP>, smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_f32_fwd_packed_kernel<DP><<<dim3((lq + kF32BQ - 1) / kF32BQ, bh), kF32Threads, smem,
-                                   st>>>(q, k, v, o, lse, lq, lk, d, f32_scale(d) * kLog2e);
-  return (int)cudaGetLastError();
+// Calls f(integral_constant WQ, integral_constant WK) with the forward's tile
+// for batch * heads heads: WQ 2 at lq <= 256, else 4; WK tc_fwd_kv_groups'.
+template <int DP, class F>
+int with_tc_fwd_tile(int batch, int heads, int lq, int lk, int d, F&& f) {
+  using W1 = std::integral_constant<int, 1>;
+  using W2 = std::integral_constant<int, 2>;
+  using W4 = std::integral_constant<int, 4>;
+  const int wk = tc_fwd_kv_groups(batch, heads, lq, lk, d);
+  if constexpr (DP > 80 && DP <= 160) {
+    if (wk == 4) return f(W2{}, W4{});
+  }
+  if constexpr (DP <= 160) {
+    if (wk == 2) return f(W2{}, W2{});
+  }
+  if (lq <= 256) return f(W2{}, W1{});
+  return f(W4{}, W1{});
 }
 
 template <int DP, int WQ, int WK>
-int launch_fwd_fusedheads_f32(const float* qf, const float* kf, const float* vf, float* of,
-                              float* lse, int batch, int heads, int lq, int lk, int d,
-                              cudaStream_t st) {
+int launch_fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse,
+                   int batch, int heads, int lq, int lk, int d, int ld, float m_init,
+                   float l_min, cudaStream_t st) {
   constexpr size_t smem = tc_fwd_smem_bytes<DP, WQ, WK>();
-  cudaError_t err = f32_set_smem(attn_f32_fwd_fusedheads_kernel<DP, WQ, WK>, smem);
+  const cudaError_t err = f32_set_smem(attn_f32_fwd_kernel<DP, WQ, WK>, smem);
   if (err != cudaSuccess) return (int)err;
-  attn_f32_fwd_fusedheads_kernel<DP, WQ, WK>
+  attn_f32_fwd_kernel<DP, WQ, WK>
       <<<dim3((lq + 16 * WQ - 1) / (16 * WQ), heads, batch), 32 * WQ * WK, smem, st>>>(
-          qf, kf, vf, of, lse, heads, lq, lk, d, f32_scale(d) * kLog2e);
+          q, k, v, o, lse, heads, lq, lk, d, ld, f32_scale(d) * kLog2e, m_init, l_min);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+// Kernels 1-f32, 3-f32 and 4-f32 (rows ld floats apart; attn_f32_fwd_kernel
+// says how a head is found).
+int fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+            int heads, int lq, int lk, int d, int ld, float m_init, float l_min, void* stream) {
+  return dispatch_tc_fwd_head_dim<256>(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return with_tc_fwd_tile<DP>(batch, heads, lq, lk, d, [&](auto wq, auto wk) {
+      return launch_fwd_f32<DP, decltype(wq)::value, decltype(wk)::value>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), batch,
+          heads, lq, lk, d, ld, m_init, l_min, static_cast<cudaStream_t>(stream));
+    });
+  });
+}
+
+template <int DP, int WQ, int WK>
 int launch_sam_f32(const float* q, const float* k, const float* v, float* o, int bh, int n,
-                   int d, const F32RelPosBias& bias, cudaStream_t st) {
-  const size_t smem = f32_fwd_smem_bytes<DP>(bias);
-  cudaError_t err = f32_set_smem(sam_f32_kernel<DP>, smem);
+                   int d, const RelPosBias& bias, cudaStream_t st) {
+  const size_t smem = tc_fwd_smem_bytes<DP, WQ, WK>() + sizeof(float) * bias.smem_floats(16 * WQ);
+  const cudaError_t err = f32_set_smem(sam_f32_kernel<DP, WQ, WK>, smem);
   if (err != cudaSuccess) return (int)err;
-  sam_f32_kernel<DP><<<dim3((n + kF32BQ - 1) / kF32BQ, bh), kF32Threads, smem, st>>>(
+  sam_f32_kernel<DP, WQ, WK><<<dim3((n + 16 * WQ - 1) / (16 * WQ), bh), 32 * WQ * WK, smem, st>>>(
       q, k, v, o, n, d, f32_scale(d) * kLog2e, bias);
   return (int)cudaGetLastError();
 }
@@ -242,12 +247,7 @@ extern "C" int lmdx_flash_fwd_f32(const void* q, const void* k, const void* v, v
                                   void* lse, int bh, int lq, int lk, int d, void* stream) {
   using namespace lmdx;
   if (!f32_args_ok(bh, lq, lk, d)) return (int)cudaErrorInvalidValue;
-  return dispatch_head_dim<256>(d, [&](auto dp) {
-    return launch_fwd_f32<decltype(dp)::value>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), bh, lq,
-        lk, d, static_cast<cudaStream_t>(stream));
-  });
+  return fwd_f32(q, k, v, o, lse, 1, bh, lq, lk, d, d, -INFINITY, 0.0f, stream);
 }
 
 extern "C" int lmdx_flash_fwd_packed_f32(const void* q, const void* k, const void* v, void* o,
@@ -258,12 +258,7 @@ extern "C" int lmdx_flash_fwd_packed_f32(const void* q, const void* k, const voi
       !f32_args_ok(batch * heads, lq, lk, d)) {
     return (int)cudaErrorInvalidValue;
   }
-  return dispatch_head_dim<256>(d, [&](auto dp) {
-    return launch_fwd_packed_f32<decltype(dp)::value>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
-        batch * heads, lq, lk, d, static_cast<cudaStream_t>(stream));
-  });
+  return fwd_f32(q, k, v, o, lse, 1, batch * heads, lq, lk, d, d, -1e30f, 1e-30f, stream);
 }
 
 extern "C" int lmdx_flash_fwd_fusedheads_f32(const void* qf, const void* kf, const void* vf,
@@ -274,25 +269,8 @@ extern "C" int lmdx_flash_fwd_fusedheads_f32(const void* qf, const void* kf, con
       d <= 0 || d > 256) {
     return (int)cudaErrorInvalidValue;
   }
-  // 32-row q tiles at Lq <= 256 (the 256- and 64-token levels), 64 above;
-  // below kTcSplitBelow blocks (up to head dim 160) the KV tiles split over
-  // warp groups: 4 where that takes all of them in one super-step, else 2.
-  const int wk = tc_fwd_kv_groups(batch, heads, lq, lk, d);
-  return dispatch_head_dim<256>(d, [&](auto dp) {
-    constexpr int DP = decltype(dp)::value;
-    auto launch = launch_fwd_fusedheads_f32<DP, 4, 1>;
-    if (lq <= 256) launch = launch_fwd_fusedheads_f32<DP, 2, 1>;
-    if constexpr (DP <= 160) {
-      if (wk == 2) launch = launch_fwd_fusedheads_f32<DP, 2, 2>;
-    }
-    if constexpr (DP > 80 && DP <= 160) {
-      if (wk == 4) launch = launch_fwd_fusedheads_f32<DP, 2, 4>;
-    }
-    return launch(static_cast<const float*>(qf), static_cast<const float*>(kf),
-                  static_cast<const float*>(vf), static_cast<float*>(of),
-                  static_cast<float*>(lse), batch, heads, lq, lk, d,
-                  static_cast<cudaStream_t>(stream));
-  });
+  return fwd_f32(qf, kf, vf, of, lse, batch, heads, lq, lk, d, heads * d, -INFINITY, 0.0f,
+                 stream);
 }
 
 extern "C" int lmdx_flash_bwd_f32(const void* q, const void* k, const void* v, const void* o,
@@ -319,12 +297,15 @@ extern "C" int lmdx_sam_attention_f32(const void* q, const void* k, const void* 
         n == gh * gw)) {
     return (int)cudaErrorInvalidValue;
   }
-  const F32RelPosBias bias{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
-                           n, gh, gw};
-  return dispatch_head_dim<160>(d, [&](auto dp) {
-    return launch_sam_f32<decltype(dp)::value>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), bh, n, d, bias,
-        static_cast<cudaStream_t>(stream));
+  const RelPosBias bias{static_cast<const float*>(bias_h), static_cast<const float*>(bias_w), n,
+                        gh, gw};
+  return dispatch_tc_fwd_head_dim<160>(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return with_tc_fwd_tile<DP>(1, bh, n, n, d, [&](auto wq, auto wk) {
+      return launch_sam_f32<DP, decltype(wq)::value, decltype(wk)::value>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), bh, n, d, bias,
+          static_cast<cudaStream_t>(stream));
+    });
   });
 }

@@ -1,31 +1,39 @@
-// Float32 attention on the tensor cores: kernel 4-f32 (the fused-heads
-// forward) and kernel 2-f32 (the backward's dQ and dK/dV kernels).
+// Float32 attention on the tensor cores: the float32 forms of every attention
+// kernel. One forward body serves kernels 1-f32 (the per-head forward), 3-f32
+// (the same from the head-packed reference's start values), 4-f32 (the
+// fused-heads forward) and 5-f32 (SAM's attention with its rel-pos bias); the
+// dQ and dK/dV bodies are kernel 2-f32 (the backward).
 //
-// Replaces, at float32: lmdx/nn/pallas/flash_attention.py::
-// _pallas_attention_fusedheads (l.622; the forward body below) and
-// _pallas_attention_bwd (l.384; the dQ and dK/dV bodies). Kernels 1-f32,
-// 3-f32 and 5-f32 stay on the FMA body of attention_f32.cuh.
+// Replaces, at float32: lmdx/nn/pallas/flash_attention.py::_pallas_attention
+// (l.107), _pallas_attention_packed (l.211) and _pallas_attention_fusedheads
+// (l.622) (the forward body), lmdx/nn/pallas/sam_attention.py::
+// _pallas_sam_attention (l.101) (the forward body with the bias policy), and
+// flash_attention.py::_pallas_attention_bwd (l.384) (the dQ and dK/dV
+// bodies). At float32 the Pallas kernels keep every product and probability
+// in float32, and so does the reference's no-autocast run (LMD's published
+// precision); the bf16 body (attention_fwd.cuh) cannot serve them (m16n8k16
+// takes bf16 operands, and it rounds P to bf16).
 //
 // What bounds them on an H100. The work is 4 (forward) or 10 (backward)
-// Lq Lk d operations on a few bytes per input element: operations, as in the
-// FMA body. Float32 accuracy on the tensor cores costs three TF32 products a
-// product (3xTF32, below), so the least time is the operations at a third of
-// the dense TF32 rate, 495 / 3 = 165 TFLOP/s (against 67 TFLOP/s of float32
-// FMA outside the tensor cores).
+// Lq Lk d operations on a few bytes per input element, far above the card's
+// ~20 float32 operations per byte of HBM: operations, and the (Lq, Lk)
+// scores never reach device memory. Float32 accuracy on the tensor cores
+// costs three TF32 products a product (3xTF32, below), so the least time is
+// the operations at a third of the dense TF32 rate, 495 / 3 = 165 TFLOP/s
+// (against 67 TFLOP/s of float32 FMA outside the tensor cores).
 //
-// 3xTF32. Each operand x is split as it goes from shared memory into
-// registers, big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and a
-// product a b is summed as small_a big_b + big_a small_b + big_a big_b into
-// float32 accumulators on mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32
-// (the small terms first; CUTLASS's OpMultiplyAddFastF32, which PyTorch's
-// memory-efficient attention runs at float32). Only small_a small_b, below
-// 2^-22 of the product, is dropped. Scores, P, dP, dS, O, the LSE and every
-// gradient stay float32; no product takes a single TF32 pass. The tensor
-// cores' own sums truncate, so a product summed across tiles adds each
-// tile's part to its running sum by float32 adds (kTcChain). The split's
-// rounding is cvt.rna's, done by two integer operations (tf32_rna): the same
-// bits on finite values as the conversion instruction, which made the
-// kernels 20-30% slower.
+// 3xTF32. Each operand x is split into big = cvt.rna.tf32(x) and small =
+// cvt.rna.tf32(x - big), and a product a b is summed as small_a big_b +
+// big_a small_b + big_a big_b into float32 accumulators on
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (the small terms first;
+// CUTLASS's OpMultiplyAddFastF32, which PyTorch's memory-efficient attention
+// runs at float32). Only small_a small_b, below 2^-22 of the product, is
+// dropped. Scores, P, dP, dS, O, the LSE and every gradient stay float32; no
+// product takes a single TF32 pass. The tensor cores' own sums truncate, so a
+// product summed across tiles adds each tile's part to its running sum by
+// float32 adds (kTcChain). The split's rounding is cvt.rna's, done by two
+// integer operations (tf32_rna): the same bits on finite values as the
+// conversion instruction, which made the kernels 20-30% slower.
 //
 // Design, the bf16 body's (attention_fwd.cuh, flash_bwd.cu) at float32:
 // - A warp owns 16 rows of the block's tile and issues mma.sync itself. The
@@ -36,43 +44,59 @@
 //   columns 2t, 2t + 1 and A at t, t + 4). So P (and dS, P^T, dS^T) feed the
 //   next product straight from C, and the contraction index is permuted
 //   instead: the B operand's row t comes from key (or q row) 2t and its row
-//   t + 4 from 2t + 1 of each 8-row group (tc_pv). A sum does not care about
-//   the order of its terms.
+//   t + 4 from 2t + 1 of each 8-row group (tc_pv, tc_pv_pairs). A sum does not
+//   care about the order of its terms.
 // - A operands of Q K^T-like products (Q, dO, K, V rows) and B operands from
 //   n-major rows (K, V, Q, dO as the right factor) come by ldmatrix.x4, a
 //   float being one 32-bit word of the b16 matrix; B operands with the
-//   contraction along rows (V, K, dO, Q in tc_pv) by 4-byte shared loads.
-//   Rows lie DP + 4 floats apart (4 mod 16 words): every ldmatrix phase and
-//   every tc_pv load falls in 32 distinct banks.
+//   contraction along rows (V, K, dO, Q in tc_pv) by shared loads. Rows lie
+//   DP + 4 floats apart (12 mod 32 words at DP 40, 4 mod 16 at the other
+//   widths): every ldmatrix phase and every tc_pv / tc_pv_pairs load falls in
+//   distinct banks.
 // - The walked tiles (K/V in the forward and dQ, Q/dO with lse and delta in
-//   dK/dV) come through a cp.async ring of two stages, 16-byte pieces where
-//   a pointer, its row pitch and d are multiples of 16 bytes and 4-byte
-//   pieces (zero-filled the same way) otherwise, so any base pointer and the
-//   fused-heads view's pitch of heads * d floats are read in place, without
-//   a copy. Rows past L and columns past d are zeros; keys past Lk (q rows
-//   past Lq in dK/dV) get p = 0 by mask. Results leave by 4-byte stores from
-//   the fragments.
+//   dK/dV) come through a cp.async ring, 16-byte pieces where a pointer, its
+//   row pitch and d are multiples of 16 bytes and 4-byte pieces (zero-filled
+//   the same way) otherwise, so any base pointer and the fused-heads view's
+//   pitch of heads * d floats are read in place, without a copy. Rows past L
+//   and columns past d are zeros; keys past Lk (q rows past Lq in dK/dV) get
+//   p = 0 by mask.
 // - Each output element has one owner and every sum a fixed order: no
 //   atomics, the same bits from run to run.
 // - wgmma is not used: it takes tf32 operands only K-major, so P V and the
 //   backward's transposed products would need a transposed copy of V, K, Q
 //   or dO in shared memory for every tile.
 //
-// Tiles (DP = d padded to 48, 64, 80, 160, 256; LDS = DP + 4 floats). A grid
-// below 132 blocks (kTcSplitBelow: one an SM) splits its work further, so
-// that the guidance batch's small shapes put more warps on the card. Blocks
-// below are at 8 heads; shared memory a block, and blocks an SM it allows:
-// - Forward: KV tiles of 32 keys. q tile 16 WQ rows: WQ 2 at Lq <= 256, 4
-//   above. Below 132 blocks (at DP <= 160, Lq <= 256) WK warp groups split
-//   the KV tiles (group w takes tiles w, w + WK, ...; each runs its own
-//   online softmax; group 0 merges (m, l, O) in group order): WK 4 where 2 to
-//   4 tiles are all (one super-step, one ring stage) above DP 80, else 2
-//   (two stages). The paths' shapes: 4096 tokens (d 40) 64 x 8 B
-//   blocks of 64 rows (39 KB, 2 an SM); 1024 (d 80) 16 x 8 B (63 KB, 2);
-//   256 (d 160) 8 x 8 B of 32 rows (102.5 KB, 2): 128 at batch 2, split by
-//   WK 2 (KV 256, 286; 184.5 KB, 1 an SM) or 4 (KV 77; 184.5 KB); 64 tokens
-//   (d 160) 2 x 8 B: 32 to 128, split by 4 (KV 64, 77, 94). DP 256 (no
-//   path): 162.5 / 195 KB, and it spills (the 32 x 4 accumulators of O).
+// The forward (attention_f32_tc_fwd_body). Head dims are padded to 40, 48,
+// 64, 80, 160 or 256 (m16n8k8 is 8 deep, so d 40 needs no padding; the
+// backward pads it to 48 as the bf16 kernels do). KV tiles of 32 keys, q
+// tiles of 16 WQ rows: WQ 2 at Lq <= 256, 4 above. Below 132 blocks (one an
+// SM; at DP <= 160, Lq <= 256) WK warp groups split the KV tiles (group w
+// takes tiles w, w + WK, ...; each runs its own online softmax; group 0
+// merges (m, l, O) in group order): WK 4 where 2 to 4 tiles are all (one
+// super-step, one ring stage) above DP 80, else 2 (two stages); one rule on
+// the host (tc_fwd_kv_groups) for every forward kernel, so kernels 1-f32 and
+// 3-f32 deal and merge their tiles alike. What the body does about the cost
+// of 3xTF32's splits, as variants timed on the card decided (PERF.md §6):
+// - Q's fragments are split once and kept in registers for the walk at DP
+//   48 and 64 (tc_fwd_keep_q).
+// - P V reads V's pairs of 8-column blocks by 8-byte loads where DP / 8 is
+//   even (column 2g of a 16-column group feeds block 2m, column 2g + 1 block
+//   2m + 1); O then leaves by 16-byte stores.
+// - Not done: splitting each landed K/V tile once for the block (big parts in
+//   place, small ones into a plane of their own) instead of once in each of
+//   the WQ warps that read it. The pass and the barrier it adds a tile cost
+//   more than the splits it saved at every path shape but the 4096-token one
+//   (SAM's windows 0.120 -> 0.18 ms).
+// The start values (m_init, l_min) and the bias are the caller's: (-inf, 0)
+// and no bias for kernels 1-f32 and 4-f32, (-1e30, 1e-30) for 3-f32 (equal
+// bits on finite inputs: ex2 of either start minus a finite max is 0, and a
+// warp group with no tile merges as nothing from either), SAM's rel-pos bias
+// (attention_bias.cuh's RelPosBias, staged with the q tile) and no LSE for
+// 5-f32.
+//
+// Blocks, shared memory a block (blocks an SM it allows) on the paths, at 8
+// heads (SAM 12): the forward in the header of attention_f32.cu; the
+// backward below.
 // - dQ: q tile of 4 warps (64 rows) up to DP 80, 2 warps (32 rows) above; KV
 //   tiles of 32 keys up to DP 80, 16 above; 52 KB (DP 48), 84 KB (DP 80), 82
 //   KB (DP 160), 130 KB (DP 256). At DP 81 to 160, below 132 blocks, WK
@@ -101,13 +125,42 @@
 // __launch_bounds__ states the blocks an SM holds (two where shared memory
 // allows, tc_blocks). Every kernel may then take 255 registers a thread: the
 // two-an-SM blocks have 64 or 128 threads. ptxas -v on the card: no spill at
-// the paths' head dims (48 to 160).
+// the paths' head dims (40 to 160).
 #pragma once
 
-#include "attention_f32.cuh"
+#include "attention_bias.cuh"
 
 namespace lmdx {
 namespace {
+
+// ---------------------------------------------------------------------------
+// Head views
+// ---------------------------------------------------------------------------
+
+// One head as the forward reads it: row pointers and row strides in floats
+// (d for a (BH, L, d) tensor, heads * d for the projection layout), this
+// head's LSE row (or null), and its batch*head index for the bias policy.
+struct F32HeadView {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* lse;
+  int ldq, ldk, ldv, ldo;
+  int bh;
+};
+
+// The head `bh` of row-major (BH, L, d) tensors and a (BH, Lq) lse (or null).
+__device__ inline F32HeadView f32_head_of_bhld(const float* q, const float* k, const float* v,
+                                               float* o, float* lse, int bh, int Lq, int Lk,
+                                               int d) {
+  return {q + (size_t)bh * Lq * d,
+          k + (size_t)bh * Lk * d,
+          v + (size_t)bh * Lk * d,
+          o + (size_t)bh * Lq * d,
+          lse != nullptr ? lse + (size_t)bh * Lq : nullptr,
+          d, d, d, d, bh};
+}
 
 // ---------------------------------------------------------------------------
 // 3xTF32 on mma.sync m16n8k8
@@ -227,41 +280,44 @@ __device__ __forceinline__ void tc_zero(float (&acc)[N][4]) {
 // error on the paths' shapes only from 6.9e-6 to 3.7e-6 of max|plain|.
 constexpr int kTcChain = 4;  // 8-deep steps of a tile's product in one tensor-core chain
 
+// acc[j] += A B_j^T over the 8-deep step kk for j < NJ: A's split fragment,
+// B_j the 8 rows at b + 8 j rows (DP columns, rows tc_lds(DP) apart).
+template <int DP, int NJ>
+__device__ __forceinline__ void tc_abt_step(float (&acc)[NJ][4], const uint32_t (&a_big)[4],
+                                            const uint32_t (&a_small)[4], const float* b, int kk,
+                                            const TcLanes& ln) {
+  constexpr int LDS = tc_lds(DP);
+  static_assert(DP % 8 == 0 && NJ % 2 == 0, "whole 8-deep steps and pairs of 8-row blocks");
+#pragma unroll
+  for (int j2 = 0; j2 < NJ / 2; ++j2) {
+    uint32_t raw[4], b_big[4], b_small[4];
+    ldmatrix_x4(raw, b + j2 * 16 * LDS + kk * 8 + ln.b);
+    split_tf32(raw, b_big, b_small);
+    mma_3xtf32(acc[2 * j2], a_big, a_small, b_big[0], b_big[1], b_small[0], b_small[1]);
+    mma_3xtf32(acc[2 * j2 + 1], a_big, a_small, b_big[2], b_big[3], b_small[2], b_small[3]);
+  }
+}
+
 // acc[j] += A B_j^T for j < NJ: A the 16 rows at `a` (DP columns), B_j the 8
 // rows at b + 8 j rows (DP columns), both shared tiles tc_lds(DP) apart.
 template <int DP, int NJ>
 __device__ __forceinline__ void tc_abt(float (&acc)[NJ][4], const float* a, const float* b,
                                        const TcLanes& ln) {
-  constexpr int LDS = tc_lds(DP), KS = DP / 8;
-  static_assert(DP % 8 == 0 && NJ % 2 == 0, "whole 8-deep steps and pairs of 8-row blocks");
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
+  for (int kk = 0; kk < DP / 8; ++kk) {
     uint32_t raw[4], a_big[4], a_small[4];
     ldmatrix_x4(raw, a + kk * 8 + ln.a);
     split_tf32(raw, a_big, a_small);
-#pragma unroll
-    for (int j2 = 0; j2 < NJ / 2; ++j2) {
-      uint32_t b_big[4], b_small[4];
-      ldmatrix_x4(raw, b + j2 * 16 * LDS + kk * 8 + ln.b);
-      split_tf32(raw, b_big, b_small);
-      mma_3xtf32(acc[2 * j2], a_big, a_small, b_big[0], b_big[1], b_small[0], b_small[1]);
-      mma_3xtf32(acc[2 * j2 + 1], a_big, a_small, b_big[2], b_big[3], b_small[2], b_small[3]);
-    }
+    tc_abt_step<DP, NJ>(acc, a_big, a_small, b, kk, ln);
   }
 }
 
-// acc[nb] += P W[:, 8 nb .. 8 nb + 7] for nb < NB: P (16 x 8 NJ) as
-// accumulator fragments, W the 8 NJ rows at w (rows lds apart, its columns
-// from w). Element e of P[j]: row g + 8 (e / 2), column 8 j + 2 t + e % 2;
-// as A it stands at k = t (e even) or t + 4 (e odd), so B's row t is W's row
-// 8 j + 2 t and its row t + 4 is W's row 8 j + 2 t + 1.
-// Each column block sums its NJ steps (NJ <= kTcChain) into a fresh
-// fragment, added to acc by float32 adds.
-template <int NJ, int NB>
-__device__ __forceinline__ void tc_pv(float (&acc)[NB][4], const float (&p)[NJ][4],
-                                      const float* w, int lds, int g, int t) {
-  static_assert(NJ <= kTcChain, "one tensor-core chain a column block");
-  uint32_t a_big[NJ][4], a_small[NJ][4];
+// P (16 x 8 NJ) as accumulator fragments, split into A fragments of P V.
+// Element e of P[j]: row g + 8 (e / 2), column 8 j + 2 t + e % 2; as A it
+// stands at k = t (e even) or t + 4 (e odd).
+template <int NJ>
+__device__ __forceinline__ void tc_split_p(const float (&p)[NJ][4], uint32_t (&a_big)[NJ][4],
+                                           uint32_t (&a_small)[NJ][4]) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     split_tf32(p[j][0], a_big[j][0], a_small[j][0]);
@@ -269,6 +325,20 @@ __device__ __forceinline__ void tc_pv(float (&acc)[NB][4], const float (&p)[NJ][
     split_tf32(p[j][1], a_big[j][2], a_small[j][2]);
     split_tf32(p[j][3], a_big[j][3], a_small[j][3]);
   }
+}
+
+// acc[nb] += P W[:, 8 nb .. 8 nb + 7] for nb < NB: P (16 x 8 NJ) as
+// accumulator fragments, W the 8 NJ rows at w (rows lds apart, its columns
+// from w). As A, P[j] stands at k = t and t + 4 (tc_split_p), so B's row t is
+// W's row 8 j + 2 t and its row t + 4 is W's row 8 j + 2 t + 1.
+// Each column block sums its NJ steps (NJ <= kTcChain) into a fresh
+// fragment, added to acc by float32 adds.
+template <int NJ, int NB>
+__device__ __forceinline__ void tc_pv(float (&acc)[NB][4], const float (&p)[NJ][4],
+                                      const float* w, int lds, int g, int t) {
+  static_assert(NJ <= kTcChain, "one tensor-core chain a column block");
+  uint32_t a_big[NJ][4], a_small[NJ][4];
+  tc_split_p(p, a_big, a_small);
   const float* w0 = w + 2 * t * lds + g;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
@@ -286,7 +356,7 @@ __device__ __forceinline__ void tc_pv(float (&acc)[NB][4], const float (&p)[NJ][
 }
 
 // ---------------------------------------------------------------------------
-// Forward (kernel 4-f32)
+// Forward (kernels 1-f32, 3-f32, 4-f32, 5-f32)
 // ---------------------------------------------------------------------------
 
 constexpr int kTcFwdBK = 32;  // keys a KV tile of the forward
@@ -295,22 +365,31 @@ constexpr int kTcFwdBK = 32;  // keys a KV tile of the forward
 // forward's and dQ's KV tiles over warp groups, dK/dV's q walk over warps.
 constexpr int kTcSplitBelow = 132;
 
+// Whether the forward keeps Q's split fragments in registers for the whole
+// walk (DP registers: 8 a k-step) rather than reloading and splitting them
+// each tile: at DP 48 and 64. On the card (PERF.md §6) it took SAM's
+// global layers (DP 64) from 1.188 to 1.133 ms; at DP 40 it cost 7% at
+// batch 6 of the 4096-token level (160 -> 179 registers a thread), at DP 80
+// it moved nothing, and at 80 and above it spills.
+__host__ __device__ constexpr bool tc_fwd_keep_q(int dp) { return dp >= 48 && dp <= 64; }
+
 // KV tiles in the ring: one super-step of WK tiles (one a warp group) where
 // four groups share the block, else two super-steps (one landing while the
 // other is multiplied).
 __host__ __device__ constexpr int tc_fwd_stages(int wk) { return wk >= 4 ? 1 : 2; }
 
-// Q tile, then the ring of K and V tiles.
+// Shared memory of a forward block before any bias rows: the Q tile, then
+// the ring of K and V tiles.
 template <int DP, int WQ, int WK>
 __host__ __device__ constexpr size_t tc_fwd_smem_bytes() {
   return sizeof(float) * tc_lds(DP) * (16 * WQ + tc_fwd_stages(WK) * WK * 2 * kTcFwdBK);
 }
 
-// Warp groups that split the KV tiles of a fused-heads forward block: one
-// where the grid fills the card (kTcSplitBelow blocks or more), where one
-// tile is all, for q tiles of 64 rows (Lq > 256) and above head dim 160;
-// else 4 where 3 or 4 tiles are all (one super-step) above head dim 80,
-// else 2.
+// Warp groups that split the KV tiles of a forward block of batch * heads
+// heads: one where the grid of 32-row q tiles fills the card (kTcSplitBelow
+// blocks or more), where one tile is all, for q tiles of 64 rows (Lq > 256)
+// and above head dim 160; else 4 where 3 or 4 tiles are all (one
+// super-step) above head dim 80, else 2.
 __host__ __device__ constexpr int tc_fwd_kv_groups(int batch, int heads, int lq, int lk, int d) {
   const int tiles = (lk + kTcFwdBK - 1) / kTcFwdBK;
   if ((long long)((lq + 31) / 32) * heads * batch >= kTcSplitBelow || lq > 256 || d > 160 ||
@@ -320,21 +399,74 @@ __host__ __device__ constexpr int tc_fwd_kv_groups(int batch, int heads, int lq,
   return tiles <= 4 && d > 80 ? 4 : 2;
 }
 
-// q rows [q0, q0 + 16 WQ) of the head `hv`: o = softmax(q k^T scale) v, the
-// LSE in natural units; scale_log2 = scale * log2(e). WQ warps own 16 q rows
-// each; WK warp groups split the KV tiles (group w takes tiles w, w + WK,
-// ...), each with its own online softmax, and group 0 merges the others'
-// (m, l, O) in group order at the end.
-template <int DP, int WQ, int WK>
+// Calls f(integral_constant<int, DP>) with the forward's padded head dim: 40
+// for d <= 40, else dispatch_head_dim's.
+template <int MAX_DP, class F>
+int dispatch_tc_fwd_head_dim(int d, F&& f) {
+  if (d <= 40) return f(std::integral_constant<int, 40>{});
+  return dispatch_head_dim<MAX_DP>(d, f);
+}
+
+// acc += P V for the tile's 8 NJ keys (V's rows at w, lds floats apart) as
+// tc_pv sums it, with V's column blocks taken in pairs by 8-byte loads:
+// column 2g of the 16 columns from 16 m feeds block 2m and column 2g + 1
+// block 2m + 1, so a lane's four O elements of the pair (rows g, g + 8) are
+// the four columns from 16 m + 4 t. Where DP / 8 is even (every padded width
+// but 40; at DP 160 it took batch 6 of the 256-token level from 0.095 to
+// 0.090 ms on the card).
+template <int NJ, int NB>
+__device__ __forceinline__ void tc_pv_pairs(float (&acc)[NB][4], const float (&p)[NJ][4],
+                                            const float* w, int lds, int g, int t) {
+  static_assert(NJ <= kTcChain && NB % 2 == 0, "one tensor-core chain a block; pairs of blocks");
+  uint32_t a_big[NJ][4], a_small[NJ][4];
+  tc_split_p(p, a_big, a_small);
+#pragma unroll
+  for (int nb = 0; nb < NB; nb += 2) {
+    float part0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, part1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int i = (8 * j + 2 * t) * lds + 8 * nb + 2 * g;  // B's row t; row t + 4 at + lds
+      const float2 x0 = *reinterpret_cast<const float2*>(w + i);
+      const float2 x1 = *reinterpret_cast<const float2*>(w + i + lds);
+      uint32_t bb0[2], bs0[2], bb1[2], bs1[2];  // [row t, row t + 4] of blocks nb, nb + 1
+      split_tf32(x0.x, bb0[0], bs0[0]);
+      split_tf32(x1.x, bb0[1], bs0[1]);
+      split_tf32(x0.y, bb1[0], bs1[0]);
+      split_tf32(x1.y, bb1[1], bs1[1]);
+      mma_3xtf32(part0, a_big[j], a_small[j], bb0[0], bb0[1], bs0[0], bs0[1]);
+      mma_3xtf32(part1, a_big[j], a_small[j], bb1[0], bb1[1], bs1[0], bs1[1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[nb][e] += part0[e];
+      acc[nb + 1][e] += part1[e];
+    }
+  }
+}
+
+// q rows [q0, q0 + 16 WQ) of the head `hv`: o = softmax(q k^T scale + bias)
+// v and, where hv.lse is not null, the LSE in natural units; scale_log2 =
+// scale * log2(e). The row max starts at m_init (log2 units) and the
+// denominator is clamped from below at l_min. WQ warps own 16 q rows each; WK
+// warp groups split the KV tiles (group w takes tiles w, w + WK, ...), each
+// with its own online softmax, and group 0 merges the others' (m, l, O) in
+// group order at the end. The bias rows of the q tile are staged after the
+// ring.
+template <int DP, int WQ, int WK, class Bias>
 __device__ __forceinline__ void attention_f32_tc_fwd_body(const F32HeadView& hv, int q0, int Lq,
-                                                          int Lk, int d, float scale_log2) {
-  constexpr int LDS = tc_lds(DP), BK = kTcFwdBK, NJ = BK / 8, NB = DP / 8;
-  constexpr int THREADS = 32 * WQ * WK, STAGES = tc_fwd_stages(WK);
+                                                          int Lk, int d, float scale_log2,
+                                                          const Bias& bias, float m_init,
+                                                          float l_min) {
+  constexpr int LDS = tc_lds(DP), BK = kTcFwdBK, NJ = BK / 8, NB = DP / 8, KS = DP / 8;
+  constexpr int BQ = 16 * WQ, THREADS = 32 * WQ * WK, STAGES = tc_fwd_stages(WK);
   constexpr int TILE = 2 * BK * LDS;  // one K tile and one V tile
   constexpr int STAGE = WK * TILE;    // one super-step
+  constexpr bool KEEP_Q = tc_fwd_keep_q(DP);
+  constexpr bool PAIR_V = NB % 2 == 0;  // tc_pv_pairs
   extern __shared__ __align__(16) float tc_smem[];
   float* sQ = tc_smem;
-  float* sKV = sQ + 16 * WQ * LDS;
+  float* sKV = sQ + BQ * LDS;
+  float* sB = sKV + STAGES * STAGE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wq = warp % WQ, wk = warp / WQ;
   const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
@@ -353,15 +485,27 @@ __device__ __forceinline__ void attention_f32_tc_fwd_body(const F32HeadView& hv,
       tc_load_rows<DP, BK, THREADS>(sK + BK * LDS, hv.v, hv.ldv, tile * BK, Lk, d, vec_kv);
     }
   };
-
-  tc_load_rows<DP, 16 * WQ, THREADS>(sQ, hv.q, hv.ldq, q0, Lq, d,
-                                     f32_rows_vectorize(hv.q, hv.ldq, d));
+  // Q, the bias rows and the first super-step travel in the first group.
+  tc_load_rows<DP, BQ, THREADS>(sQ, hv.q, hv.ldq, q0, Lq, d, f32_rows_vectorize(hv.q, hv.ldq, d));
+  bias.stage(sB, hv.bh, q0, BQ);
   load_step(0);
   cp_async_commit();
 
+  uint32_t q_big[KEEP_Q ? KS : 1][4], q_small[KEEP_Q ? KS : 1][4];
+  if constexpr (KEEP_Q) {
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t raw[4];
+      ldmatrix_x4(raw, sQ + wr0 * LDS + kk * 8 + ln.a);
+      split_tf32(raw, q_big[kk], q_small[kk]);
+    }
+  }
+
   float o[NB][4];
   tc_zero(o);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // l: this lane's part
+  float m[2] = {m_init, m_init}, l[2] = {0.0f, 0.0f};  // l: this lane's part
 
   for (int step = 0; step < nsteps; ++step) {
     // Step `step` has landed for this thread; after the barrier for all, and
@@ -378,15 +522,34 @@ __device__ __forceinline__ void attention_f32_tc_fwd_body(const F32HeadView& hv,
 
       float s[NJ][4];
       tc_zero(s);
-      tc_abt<DP, NJ>(s, sQ + wr0 * LDS, sK, ln);
+      if constexpr (KEEP_Q) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) tc_abt_step<DP, NJ>(s, q_big[kk], q_small[kk], sK, kk, ln);
+      } else {
+        tc_abt<DP, NJ>(s, sQ + wr0 * LDS, sK, ln);
+      }
 
-      // Log2 units; keys past Lk to -inf.
+      // Log2 units, the bias added (times log2 e), keys past Lk to -inf.
+      // Element e of block j: row g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2.
+      typename Bias::Col col = bias.col(k0 + 2 * t);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int c = k0 + 8 * j + 2 * t;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = c + (e & 1) < Lk ? s[j][e] * scale_log2 : -INFINITY;
+        for (int hf = 0; hf < 2; ++hf) {
+          float& s0 = s[j][2 * hf];
+          float& s1 = s[j][2 * hf + 1];
+          s0 *= scale_log2;
+          s1 *= scale_log2;
+          bias.add2(s0, s1, sB, BQ, wr0 + g + 8 * hf, col);
+        }
+        col = bias.next(col, 8);
+      }
+      if (k0 + BK > Lk) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int c = k0 + 8 * j + 2 * t;
+          if (c >= Lk) s[j][0] = s[j][2] = -INFINITY;
+          if (c + 1 >= Lk) s[j][1] = s[j][3] = -INFINITY;
         }
       }
 
@@ -416,7 +579,11 @@ __device__ __forceinline__ void attention_f32_tc_fwd_body(const F32HeadView& hv,
         }
       }
 
-      tc_pv<NJ, NB>(o, s, sV, LDS, g, t);  // O += P V
+      if constexpr (PAIR_V) {  // O += P V
+        tc_pv_pairs<NJ, NB>(o, s, sV, LDS, g, t);
+      } else {
+        tc_pv<NJ, NB>(o, s, sV, LDS, g, t);
+      }
     }
     if (STAGES == 1 && step + 1 < nsteps) {
       __syncthreads();  // every warp is done with the stage
@@ -428,7 +595,7 @@ __device__ __forceinline__ void attention_f32_tc_fwd_body(const F32HeadView& hv,
   if constexpr (WK > 1) {
     // Groups 1 .. WK - 1 hand (O, m, l) to group 0 through the free ring,
     // lane-major; group 0 merges them in group order. A group that got no
-    // tile holds m = -inf, l = 0, O = 0 and merges as nothing.
+    // tile holds m = m_init, l = 0, O = 0 and merges as nothing.
     constexpr int SLOT = (NB * 4 + 4) * 32;
     static_assert((size_t)(WK - 1) * WQ * SLOT <= (size_t)STAGES * STAGE, "the ring holds it");
     cp_async_wait<0>();
@@ -468,22 +635,43 @@ __device__ __forceinline__ void attention_f32_tc_fwd_body(const F32HeadView& hv,
     }
   }
 
+  // O times 1 / l: paired blocks (tc_pv_pairs) leave by 16-byte stores (four
+  // columns from 16 m + 4 t) where the output allows, the rest by 4-byte ones.
+  const bool vec_o = aligned16(hv.o) && (hv.ldo & 3) == 0;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float sum = l[hf];
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum = fmaxf(sum, l_min);
     const int r = q0 + wr0 + g + 8 * hf;
     if (r < Lq) {
       const float inv = 1.0f / sum;
       float* orow = hv.o + (size_t)r * hv.ldo;
+      if constexpr (PAIR_V) {
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const int c = 8 * nb + 2 * t;
-        if (c < d) orow[c] = o[nb][2 * hf] * inv;
-        if (c + 1 < d) orow[c + 1] = o[nb][2 * hf + 1] * inv;
+        for (int nb = 0; nb < NB; nb += 2) {
+          const int c = 8 * nb + 4 * t;
+          const float4 x = make_float4(o[nb][2 * hf] * inv, o[nb + 1][2 * hf] * inv,
+                                       o[nb][2 * hf + 1] * inv, o[nb + 1][2 * hf + 1] * inv);
+          if (vec_o && c + 3 < d) {
+            *reinterpret_cast<float4*>(orow + c) = x;
+          } else {
+            if (c < d) orow[c] = x.x;
+            if (c + 1 < d) orow[c + 1] = x.y;
+            if (c + 2 < d) orow[c + 2] = x.z;
+            if (c + 3 < d) orow[c + 3] = x.w;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          const int c = 8 * nb + 2 * t;
+          if (c < d) orow[c] = o[nb][2 * hf] * inv;
+          if (c + 1 < d) orow[c + 1] = o[nb][2 * hf + 1] * inv;
+        }
       }
-      if (t == 0) hv.lse[r] = m[hf] * kLn2 + logf(sum);
+      if (hv.lse != nullptr && t == 0) hv.lse[r] = m[hf] * kLn2 + logf(sum);
     }
   }
 }

@@ -26,15 +26,14 @@ launches its kernel or raises. `FlashAttention` and `FusedHeadsAttention` wire
 them into autograd, as `jax.custom_vjp` does on the JAX side; both take their
 gradient from `flash_attention_bwd` (the fused-heads one after a head split).
 `attention_fwd_tiled_plain` repeats, step by step, the arithmetic of the
-forward body that the three forward kernels and SAM's share
-(`csrc/attention_fwd.cuh`), and `attention_bwd_tiled_plain` that of the
+bf16 forward body that the three bf16 forward kernels and SAM's share
+(`csrc/attention_fwd.cuh`), and `attention_bwd_tiled_plain` that of the bf16
 backward's two kernels (`csrc/flash_bwd.cu`); the CPU tests hold them against
-the plain versions. At float32 inputs `attention_fwd_tiled_plain` rounds
-nothing and is the arithmetic of the float32 FMA body (`csrc/attention_f32.cuh`:
-kernels 1, 3 and 5 at float32), which walks the same tiles. The float32
-fused-heads forward and backward run on the tensor cores in 3xTF32
-(`csrc/attention_f32_tc.cuh`); `attention_fwd_fusedheads_tc_plain` and
-`attention_bwd_tc_plain` repeat their steps (`matmul_3xtf32` over their tiles).
+the plain versions. Every float32 kernel runs on the tensor cores in 3xTF32
+(`csrc/attention_f32_tc.cuh`): `attention_fwd_tc_plain` repeats the steps of
+the float32 forward body (kernels 1, 3, 4 and 5 at float32; the fused-heads
+form is `attention_fwd_fusedheads_tc_plain`) and `attention_bwd_tc_plain`
+those of the float32 backward (`matmul_3xtf32` over their tiles).
 
 Dispatch (the attention layers call it for their untapped attentions):
 
@@ -104,10 +103,12 @@ def attention_fwd_tiled_plain(q, k, v, rel_pos=None, m_init=float("-inf"), l_min
     (B, h, Lq, gh) and (B, h, Lq, gw) with Lk = gh * gw, added unscaled in
     f32 (times log2(e), as every score). `(-inf, 0)` is the plain softmax;
     the head-packed kernel runs `(-1e30, 1e-30)`. q: (B, h, Lq, d), k/v:
-    (B, h, Lk, d). At float32 inputs nothing is rounded: this is then the
-    float32 body's (`csrc/attention_f32.cuh`) arithmetic from `(-inf, 0)`,
-    bias included. The kernels are held to the one-pass plain versions; this
-    one shows on the CPU that the body's steps give the same function."""
+    (B, h, Lk, d). This is the bf16 body's arithmetic; at float32 inputs it
+    rounds nothing and is the one-pass function in 64-key tiles (the float32
+    kernels' own steps, 3xTF32 products in 32-key tiles, are
+    `attention_fwd_tc_plain`'s). The kernels are held to the one-pass plain
+    versions; this one shows on the CPU that the body's steps give the same
+    function."""
     lk, d = k.shape[2], q.shape[-1]
     scale_log2 = d ** -0.5 * _LOG2E
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -288,21 +289,22 @@ def matmul_3xtf32(a, b):
 
 
 # Tiles of the float32 tensor-core kernels (`csrc/attention_f32_tc.cuh`),
-# which set the order of their sums: the fused-heads forward walks 32-key
-# tiles over `f32_tc_fwd_kv_groups` warp groups, the dQ kernel tiles of
-# `f32_tc_dq_kv_tile(d)` keys over `f32_tc_dq_kv_groups` groups, the dK/dV
-# kernel q as `f32_tc_dkdv_walk` says.
+# which set the order of their sums: every float32 forward (kernels 1, 3, 4
+# and 5) walks 32-key tiles over `f32_tc_fwd_kv_groups` warp groups, the dQ
+# kernel tiles of `f32_tc_dq_kv_tile(d)` keys over `f32_tc_dq_kv_groups`
+# groups, the dK/dV kernel q as `f32_tc_dkdv_walk` says.
 F32_TC_FWD_KV_TILE = 32
 _SMS = 132  # a grid below this many blocks splits its work further (kTcSplitBelow)
 
 
 def f32_tc_fwd_kv_groups(batch: int, heads: int, lq: int, lk: int, d: int) -> int:
-    """Warp groups that split the float32 fused-heads forward's KV tiles
-    (`tc_fwd_kv_groups`): 1 where its grid of 32-row q tiles holds 132 blocks
-    or more, at Lq > 256 (64-row tiles), above head dim 160 and for one tile;
-    else 4 for up to 4 tiles above head dim 80, else 2. Group w takes tiles
-    w, w + groups, ... with its own online softmax; group 0 merges the others
-    in order."""
+    """Warp groups that split a float32 forward's KV tiles over batch * heads
+    heads (`tc_fwd_kv_groups`; the per-head, head-packed and SAM kernels pass
+    batch 1 and B * heads): 1 where its grid of 32-row q tiles holds 132
+    blocks or more, at Lq > 256 (64-row tiles), above head dim 160 and for one
+    tile; else 4 for up to 4 tiles above head dim 80, else 2. Group w takes
+    tiles w, w + groups, ... with its own online softmax; group 0 merges the
+    others in order."""
     tiles = -(-lk // F32_TC_FWD_KV_TILE)
     if -(-lq // 32) * heads * batch >= _SMS or lq > 256 or d > 160 or tiles == 1:
         return 1
@@ -339,41 +341,59 @@ def f32_tc_dkdv_walk(lq: int, lk: int, d: int, bh: int) -> tuple[int, int]:
     return 16, (4 if d <= 80 else 2)
 
 
-def attention_fwd_fusedheads_tc_plain(qf, kf, vf, heads: int):
-    """(o, lse) by the arithmetic of the float32 fused-heads kernel
-    (`csrc/attention_f32_tc.cuh`), step by step: per head, 32-key tiles dealt
-    to `f32_tc_fwd_kv_groups` groups; in each group scores by `matmul_3xtf32`
-    in log2 units (`scale * log2(e)` folded into one multiply), an online
-    softmax from -inf with `exp2`, O += P V by `matmul_3xtf32` on the
-    unrounded probabilities; the groups' (m, l, O) merged in group order; O
-    times 1 / l; the LSE in natural units. Shapes as
-    `attention_fwd_fusedheads_plain`."""
-    q, k, v = (split_heads(t, heads).float() for t in (qf, kf, vf))
-    lk, d = k.shape[2], q.shape[-1]
+def attention_fwd_tc_plain(q, k, v, rel_pos=None, m_init=float("-inf"), l_min=0.0):
+    """(o, lse) by the arithmetic of the float32 forward kernels
+    (`csrc/attention_f32_tc.cuh`: kernels 1, 3, 4 and 5 at float32), step by
+    step: per head, 32-key tiles dealt to `f32_tc_fwd_kv_groups(1, B * h, Lq,
+    Lk, d)` groups; in each group scores by `matmul_3xtf32` in log2 units
+    (`scale * log2(e)` folded into one multiply), `rel_pos` (SAM's
+    `(bias_h, bias_w)`, (B, h, Lq, gh) and (B, h, Lq, gw) with Lk = gh * gw)
+    added unscaled times log2(e), an online softmax from `m_init` with
+    `exp2`, O += P V by `matmul_3xtf32` on the unrounded probabilities; the
+    groups' (m, l, O) merged in group order; the denominator clamped from
+    below at `l_min`; O times 1 / l; the LSE in natural units. `(-inf, 0)` is
+    kernels 1, 4 and 5; the head-packed kernel 3 runs `(-1e30, 1e-30)`.
+    q: (B, h, Lq, d), k/v: (B, h, Lk, d), float32."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
     scale_log2 = d ** -0.5 * _LOG2E
-    groups = f32_tc_fwd_kv_groups(qf.shape[0], heads, q.shape[2], lk, d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    groups = f32_tc_fwd_kv_groups(1, b * h, lq, lk, d)
     states = []
     for w in range(groups):
-        m = torch.full(q.shape[:3], float("-inf"), device=q.device, dtype=torch.float32)
+        m = torch.full((b, h, lq), m_init, device=q.device, dtype=torch.float32)
         l = torch.zeros_like(m)
-        acc = torch.zeros_like(q)
+        acc = torch.zeros_like(qf)
         for k0 in range(w * F32_TC_FWD_KV_TILE, lk, groups * F32_TC_FWD_KV_TILE):
             tile = slice(k0, k0 + F32_TC_FWD_KV_TILE)
-            s = matmul_3xtf32(q, k[:, :, tile].transpose(-1, -2)) * scale_log2
+            s = matmul_3xtf32(qf, kf[:, :, tile].transpose(-1, -2)) * scale_log2
+            if rel_pos is not None:
+                bias_h, bias_w = rel_pos
+                cols = torch.arange(k0, min(k0 + F32_TC_FWD_KV_TILE, lk), device=q.device)
+                gw = bias_w.shape[-1]
+                s = s + (bias_h.float()[..., cols // gw] + bias_w.float()[..., cols % gw]) * _LOG2E
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(s - m_new[..., None])
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + matmul_3xtf32(p, v[:, :, tile])
+            acc = acc * alpha[..., None] + matmul_3xtf32(p, vf[:, :, tile])
             m = m_new
         states.append((m, l, acc))
     m, l, acc = states[0]
     for m_w, l_w, acc_w in states[1:]:
         m_new = torch.maximum(m, m_w)
-        a, b = torch.exp2(m - m_new), torch.exp2(m_w - m_new)
-        l, acc, m = l * a + l_w * b, acc * a[..., None] + acc_w * b[..., None], m_new
-    o = acc * (1.0 / l)[..., None]
-    return merge_heads(o).to(qf.dtype), m * _LN2 + torch.log(l)
+        a, b_ = torch.exp2(m - m_new), torch.exp2(m_w - m_new)
+        l, acc, m = l * a + l_w * b_, acc * a[..., None] + acc_w * b_[..., None], m_new
+    l = l.clamp_min(l_min)
+    return (acc * (1.0 / l)[..., None]).to(q.dtype), m * _LN2 + torch.log(l)
+
+
+def attention_fwd_fusedheads_tc_plain(qf, kf, vf, heads: int):
+    """(o, lse) by the arithmetic of the float32 fused-heads kernel: per head
+    of the projection layout, `attention_fwd_tc_plain`'s steps from
+    `(-inf, 0)`. Shapes as `attention_fwd_fusedheads_plain`."""
+    o, lse = attention_fwd_tc_plain(*(split_heads(t, heads) for t in (qf, kf, vf)))
+    return merge_heads(o).to(qf.dtype), lse
 
 
 def attention_bwd_tc_plain(q, k, v, lse, o, do):

@@ -147,13 +147,13 @@ def test_ptxas_report_names_kernels_and_spills():
         {"kernel": "flash_bwd_delta_kernel", "registers": 12, "spill_bytes": 0}]
 
 
-# The float32 body (lmdx_torch/csrc/attention_f32.cuh) walks the same 64-row
-# KV tiles from (-inf, 0) and rounds nothing: at float32 inputs
-# `attention_fwd_tiled_plain` is its arithmetic step by step. Held to the
-# Pallas kernel in interpret mode at float32, at the head dims of the UNet's
-# levels (40, 80, 160) and SAM's (64), with the GLIGEN fuser's unaligned
-# L + 30 keys; O to 1e-5 * max|Pallas|, the LSE to 1e-4 (the card's float32
-# tolerance).
+# `attention_fwd_tiled_plain` is the bf16 body's arithmetic (64-row KV tiles
+# from (-inf, 0)); at float32 inputs it rounds nothing. Held to the Pallas
+# kernel in interpret mode at float32, at the head dims of the UNet's levels
+# (40, 80, 160) and SAM's (64), with the GLIGEN fuser's unaligned L + 30
+# keys; O to 1e-5 * max|Pallas|, the LSE to 1e-4 (the card's float32
+# tolerance). The float32 kernels follow `attention_fwd_tc_plain` (3xTF32
+# products in 32-key tiles; tests/test_torch_f32_tc.py).
 F32_CASES = [(256, 286, 40), (64, 94, 80), (100, 130, 160), (196, 196, 64)]
 
 

@@ -1,16 +1,19 @@
 """The arithmetic of the float32 tensor-core kernels (lmdx_torch/csrc/
-attention_f32_tc.cuh: kernel 4-f32, the fused-heads forward, and kernel
-2-f32, the backward), repeated step by step in plain PyTorch on the CPU:
-`attention_fwd_fusedheads_tc_plain` and `attention_bwd_tc_plain` take every
+attention_f32_tc.cuh: the forward body of kernels 1-f32, 3-f32, 4-f32 and
+5-f32, and kernel 2-f32, the backward), repeated step by step in plain
+PyTorch on the CPU: `attention_fwd_tc_plain` (its fused-heads form
+`attention_fwd_fusedheads_tc_plain`) and `attention_bwd_tc_plain` take every
 product in 3xTF32 (`matmul_3xtf32`: each operand split into TF32 big and
 small parts, `tf32_round` emulating `cvt.rna.tf32.f32`) over the kernels'
 tiles (32-key tiles of the forward, `f32_tc_dq_kv_tile`,
 `f32_tc_dkdv_walk`). Held against the one-pass float32 plain versions the
-kernels are held to on the card (`attention_fwd_fusedheads_plain`,
-`attention_bwd_plain`) and against the JAX package's Pallas kernels in
-interpret mode at float32, at the widest reductions the float32 paths have:
-KV 4126 (the 4096-token fuser attention) at a narrow width, head dim 160,
-KV 77, and the q walk of 4096 rows of the KV-77 gradient.
+kernels are held to on the card (`attention_fwd_plain`,
+`attention_fwd_packed_plain`, `sam_attention_plain`,
+`attention_fwd_fusedheads_plain`, `attention_bwd_plain`) and against the JAX
+package's kernels at float32, at the widest reductions the float32 paths
+have: KV 4126 (the 4096-token fuser attention) at a narrow width, head dim
+160, KV 77, SAM's 14x14 windows (4 keys in the last tile), and the q walk of
+4096 rows of the KV-77 gradient.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_gpu.py,
 within 1e-4 * max|plain| there); these tests show on the CPU that 3xTF32 in
@@ -21,8 +24,14 @@ Tolerances, each a share of max|reference| per output (the LSE absolute):
 - against the one-pass plain versions 1e-5: 3xTF32 drops small_a small_b
   (below 2^-22 of a product) and rounds the small parts to TF32, and the
   tiles sum in another order (measured below 2.4e-6, the LSE below 1e-6);
-- against the Pallas kernels in interpret mode 2e-5 (the same, plus the
-  Pallas side's own float32 sums; measured below 2.5e-6);
+- against the Pallas kernels in interpret mode at float32 and the JAX side's
+  materialized SAM attention 2e-5 (the same, plus the JAX side's own float32
+  sums; measured below 2.5e-6);
+- against the Pallas SAM kernel in interpret mode 4e-2, the JAX package's
+  own tolerance for it: it casts q, k, v and the bias to bf16 for its
+  products whatever the input dtype, so it is no float32 reference;
+- kernel 3-f32's start values (-1e30, 1e-30) against kernel 1-f32's
+  (-inf, 0): equal bits (the kernels are held to the same on the card);
 - one TF32 pass (the negative control) misses 1e-4 by far.
 """
 
@@ -32,7 +41,9 @@ import pytest
 import torch
 
 from lmdx.nn.pallas import flash_attention as jfa
+from lmdx.nn.pallas import sam_attention as jsa
 from lmdx_torch.nn.kernels import flash_attention as fa
+from lmdx_torch.nn.kernels import sam_attention as sa
 
 TOL = 1e-5
 TOL_LSE = 1e-5
@@ -69,6 +80,13 @@ def _fused(b, h, lq, lk, d, seed):
 def _split(b, h, lq, lk, d, seed):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal((b, h, n, d), dtype=np.float32) for n in (lq, lk, lk, lq))
+
+
+def _sam(h, gh, gw, d, seed):
+    rng = np.random.default_rng(seed)
+    n = gh * gw
+    return tuple(rng.standard_normal((1, h, n, last), dtype=np.float32)
+                 for last in (d, d, d, gh, gw))
 
 
 def test_tf32_round_is_cvt_rna():
@@ -188,19 +206,102 @@ def test_dq_kv_tile():
     assert [fa.f32_tc_dq_kv_tile(d) for d in (40, 64, 80, 96, 160, 256)] == [32] * 3 + [16] * 3
 
 
-@pytest.mark.parametrize("which", ["forward", "backward"])
+@pytest.mark.parametrize("which", ["forward", "backward", "per_head", "packed", "sam"])
 def test_one_tf32_pass_misses_the_card_tolerance(monkeypatch, which):
     """The negative control: the same steps with every product in one TF32
-    pass miss the card's 1e-4 * max|plain| at the widest reduction (KV 4126)."""
+    pass miss the card's 1e-4 * max|plain| at the widest reduction (KV 4126;
+    SAM at its 14x14 windows)."""
     monkeypatch.setattr(fa, "matmul_3xtf32", lambda a, b: fa.tf32_round(a) @ fa.tf32_round(b))
     if which == "forward":
         qf, kf, vf = (torch.from_numpy(x) for x in _fused(1, 2, 16, 4126, 40, seed=3))
         got, _ = fa.attention_fwd_fusedheads_tc_plain(qf, kf, vf, 2)
         want, _ = fa.attention_fwd_fusedheads_plain(qf, kf, vf, 2)
         errs = [_rel(got, want)]
+    elif which in ("per_head", "packed"):
+        q, k, v, _ = (torch.from_numpy(x) for x in _split(1, 2, 16, 4126, 40, seed=3))
+        start = {"per_head": {}, "packed": {"m_init": -1e30, "l_min": 1e-30}}[which]
+        got, _ = fa.attention_fwd_tc_plain(q, k, v, **start)
+        errs = [_rel(got, fa.attention_fwd_plain(q, k, v)[0])]
+    elif which == "sam":
+        q, k, v, bias_h, bias_w = (torch.from_numpy(x) for x in _sam(2, 14, 14, 64, seed=3))
+        got, _ = fa.attention_fwd_tc_plain(q, k, v, rel_pos=(bias_h, bias_w))
+        errs = [_rel(got, sa.sam_attention_plain(q, k, v, bias_h, bias_w))]
     else:
         q, k, v, g = (torch.from_numpy(x) for x in _split(1, 2, 16, 4126, 40, seed=3))
         o, lse = fa.attention_fwd_plain(q, k, v)
         errs = [_rel(x, y) for x, y in zip(fa.attention_bwd_tc_plain(q, k, v, lse, o, g),
                                            fa.attention_bwd_plain(q, k, v, lse, o, g))]
     assert max(errs) > CARD_TOL, errs
+
+
+# (batch, heads, Lq, Lk, d) of the per-head and head-packed forwards (kernels
+# 1-f32 and 3-f32, B * heads heads a grid): KV 4126 at a narrow width (2 warp
+# groups); the 256-token level's fuser KV at head dim 160 (2 groups, 9
+# tiles); 3 and 2 tiles over 4 groups (the last one or two get none); a grid
+# of 136 blocks (one group); a head dim that is no multiple of 8.
+BHLD_SHAPES = [(1, 2, 16, 4126, 40), (1, 2, 64, 286, 160), (2, 2, 32, 77, 160),
+               (1, 2, 32, 40, 160), (2, 34, 64, 94, 40), (2, 3, 100, 130, 20)]
+# (heads, gh, gw, d) of SAM's attention (kernel 5-f32): the 14x14 windows (4
+# keys in the last 32-key tile), an odd gw, and a grid small enough that 2
+# warp groups split the KV tiles.
+SAM_GRIDS = [(2, 14, 14, 64), (2, 6, 7, 32), (1, 5, 9, 40)]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", BHLD_SHAPES)
+def test_tc_forward_per_head_matches_plain(b, h, lq, lk, d):
+    q, k, v, _ = (torch.from_numpy(x) for x in _split(b, h, lq, lk, d, seed=lq + lk + d + 4))
+    o, lse = fa.attention_fwd_tc_plain(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+    assert o.dtype == torch.float32 and o.shape == q.shape and lse.shape == (b, h, lq)
+    assert _rel(o, o_ref) <= TOL
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", BHLD_SHAPES)
+def test_tc_forward_packed_start_values_give_equal_bits(b, h, lq, lk, d):
+    """From (-1e30, 1e-30) the steps give the bits of (-inf, 0) on finite
+    inputs, also where a warp group gets no tile; and the packed kernel's
+    plain version within 1e-5."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _split(b, h, lq, lk, d, seed=lq + lk + d + 5))
+    o, lse = fa.attention_fwd_tc_plain(q, k, v, m_init=-1e30, l_min=1e-30)
+    o_one, lse_one = fa.attention_fwd_tc_plain(q, k, v)
+    assert torch.equal(o, o_one) and torch.equal(lse, lse_one)
+    o_ref, lse_ref = fa.attention_fwd_packed_plain(q, k, v)
+    assert _rel(o, o_ref) <= TOL
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("b,h,lq,lk,d", [BHLD_SHAPES[i] for i in (0, 1, 2, 5)])
+def test_tc_forward_per_head_matches_pallas_interpret(b, h, lq, lk, d, packed):
+    q, k, v, _ = _split(b, h, lq, lk, d, seed=6)
+    kernel = jfa._pallas_attention_packed if packed else jfa._pallas_attention
+    o_ref, lse_ref = kernel(*map(jnp.asarray, (q, k, v)), interpret=True, return_lse=True)
+    assert o_ref.dtype == jnp.float32
+    start = {"m_init": -1e30, "l_min": 1e-30} if packed else {}
+    o, lse = fa.attention_fwd_tc_plain(*map(torch.from_numpy, (q, k, v)), **start)
+    assert _rel(o, torch.tensor(np.asarray(o_ref))) <= TOL_PALLAS
+    assert (lse - torch.tensor(np.asarray(lse_ref))).abs().max().item() <= TOL_PALLAS
+
+
+@pytest.mark.parametrize("h,gh,gw,d", SAM_GRIDS)
+def test_tc_forward_rel_pos_matches_sam_plain(h, gh, gw, d):
+    q, k, v, bias_h, bias_w = (torch.from_numpy(x) for x in _sam(h, gh, gw, d, seed=gh + gw))
+    got, _ = fa.attention_fwd_tc_plain(q, k, v, rel_pos=(bias_h, bias_w))
+    want = sa.sam_attention_plain(q, k, v, bias_h, bias_w)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("h,gh,gw,d", SAM_GRIDS)
+def test_tc_forward_rel_pos_matches_the_jax_sam_attention(h, gh, gw, d):
+    """At 2e-5 against the JAX side's float32 SAM attention (materialized
+    scores); at the Pallas kernel's own 4e-2 against it in interpret mode (its
+    products take bf16 operands at any input dtype)."""
+    args = _sam(h, gh, gw, d, seed=7)
+    got, _ = fa.attention_fwd_tc_plain(*map(torch.from_numpy, args[:3]),
+                                       rel_pos=tuple(map(torch.from_numpy, args[3:])))
+    want = torch.tensor(np.asarray(jsa.xla_sam_attention(*map(jnp.asarray, args))))
+    assert _rel(got, want) <= TOL_PALLAS
+    pallas = jsa.sam_attention_interpret(*map(jnp.asarray, args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=4e-2, atol=4e-2)

@@ -15,9 +15,8 @@ f32 sums of pair_stats to 1e-3 * max|plain| (f32 sums in another order).
 The float32 forms of the flash forward, its backward and SAM attention
 (`csrc/attention_f32.cu`) keep everything in float32: each output within
 1e-4 * max|plain| and the LSE within 1e-4 (f32 sums in another order and
-ex2.approx for exp; the backward's and the fused-heads forward's products in
-3xTF32, which drops terms below 2^-22 of a product; TF32 off for the plain
-versions' products).
+ex2.approx for exp; every product in 3xTF32, which drops terms below 2^-22
+of a product; TF32 off for the plain versions' products).
 """
 
 import numpy as np
@@ -803,3 +802,124 @@ def test_f32_tc_kernels_match_their_step_by_step_plain_versions(no_tf32):
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     for g, w in zip(got, want):
         _close_f32(g, w)
+
+
+# ---- kernels 1-f32, 3-f32 and 5-f32 on the tensor-core forward body ---------
+
+F32_TC_FWD_SHAPES = [
+    # (batch*heads, Lq, Lk, d): the 256-token level at batch 1 (64 blocks of
+    # 32 rows: the KV tiles split over 2 warp groups), KV L and L + 30; the
+    # 64-token level at batch 2 (KV 77: 3 tiles over 4 groups, one of them
+    # empty); head dim 256 (no path; 64-row q tiles, one group)
+    (8, 256, 256, 160),
+    (8, 256, 286, 160),
+    (16, 64, 77, 160),
+    (8, 256, 286, 256),
+]
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", F32_TC_FWD_SHAPES)
+def test_f32_forward_tc_tiles_match_plain(no_tf32, bh, lq, lk, d):
+    q, k, v, _ = _inputs(bh, lq, lk, d, no_tf32, seed=41, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close_f32(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", F32_TC_FWD_SHAPES + [(48, 4096, 4126, 40)])
+def test_f32_packed_forward_equals_kernel_1_f32_on_every_tile(cuda, bh, lq, lk, d):
+    """Kernel 3-f32 deals and merges its KV tiles as kernel 1-f32 does, so
+    the start values (-1e30, 1e-30) give kernel 1-f32's bits, also where a
+    warp group gets no tile."""
+    q, k, v, _ = _inputs(bh, lq, lk, d, cuda, seed=42, dtype=torch.float32)
+    q4, k4, v4 = (t.reshape(2, bh // 2, -1, d) for t in (q, k, v))
+    o, lse = fa.flash_attention_fwd_packed(q4, k4, v4)
+    o_one, lse_one = fa.flash_attention_fwd(q4, k4, v4)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_one) and torch.equal(lse, lse_one)
+
+
+F32_TC_SAM_SHAPES = [
+    (24, 64, 64, 64),       # SAM ViT-B's global layers, a 2-image chunk
+    (600, 14, 14, 64),      # its 14x14 windows (4 keys in the last KV tile), 2 images
+    (4, 6, 7, 40),          # odd gw, few blocks: KV tiles over 2 warp groups
+]
+
+
+@pytest.mark.parametrize("bh,gh,gw,d", F32_TC_SAM_SHAPES)
+def test_f32_sam_attention_tc_matches_plain_and_its_steps(no_tf32, bh, gh, gw, d):
+    q, k, v, bias_h, bias_w = (t.float() for t in _sam_inputs(bh, gh, gw, d, no_tf32, seed=43))
+    got = sa.sam_attention(q, k, v, bias_h, bias_w)
+    want = sa.sam_attention_plain(q, k, v, bias_h, bias_w)
+    steps, _ = fa.attention_fwd_tc_plain(q, k, v, rel_pos=(bias_h, bias_w))
+    torch.cuda.synchronize()
+    _close_f32(got, want)
+    _close_f32(got, steps)
+
+
+@pytest.mark.parametrize("which", ["q", "kv", "all"])
+@pytest.mark.parametrize("bh,lq,lk,d", [(8, 256, 286, 160), (8, 4096, 4126, 40),
+                                        (3, 100, 300, 20)])
+def test_f32_forward_and_packed_take_pointers_off_16_bytes(cuda, bh, lq, lk, d, which):
+    """Kernels 1-f32 and 3-f32 on tensors that start 4 bytes into their
+    allocation (4-byte cp.async pieces, 4-byte stores of O and the LSE) give
+    the aligned call's O and LSE bit for bit."""
+    q, k, v, _ = _inputs(bh, lq, lk, d, cuda, seed=44, dtype=torch.float32)
+    want = fa.flash_attention_fwd(q, k, v)
+    want_packed = fa.flash_attention_fwd_packed(q, k, v)
+    if which in ("q", "all"):
+        q = _shifted(q)
+    if which in ("kv", "all"):
+        k, v = _shifted(k), _shifted(v)
+    got = fa.flash_attention_fwd(q, k, v)
+    got_packed = fa.flash_attention_fwd_packed(q, k, v)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got_packed, want_packed))
+
+
+@pytest.mark.parametrize("which", ["qkv", "bias"])
+@pytest.mark.parametrize("bh,gh,gw", [(24, 64, 64), (600, 14, 14), (4, 6, 7)])
+def test_f32_sam_attention_takes_pointers_off_16_bytes(cuda, bh, gh, gw, which):
+    q, k, v, bias_h, bias_w = (t.float() for t in _sam_inputs(bh, gh, gw, 64, cuda, seed=45))
+    want = sa.sam_attention(q, k, v, bias_h, bias_w)
+    if which == "qkv":
+        q, k, v = _shifted(q), _shifted(k), _shifted(v)
+    else:
+        bias_h, bias_w = _shifted(bias_h), _shifted(bias_w)
+    got = sa.sam_attention(q, k, v, bias_h, bias_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_f32_sam_attention_is_bit_equal_from_run_to_run(cuda):
+    for bh, g in ((24, 64), (600, 14)):
+        q, k, v, bias_h, bias_w = (t.float() for t in _sam_inputs(bh, g, g, 64, cuda, seed=46))
+        first, second = (sa.sam_attention(q, k, v, bias_h, bias_w) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def _bf16_sam_digest(device="cuda") -> str:
+    """SHA-1 of the bf16 SAM kernel's outputs on seeded inputs at SAM ViT-B's
+    two shapes (one image: B*H 12 on the 64x64 grid, 300 on the 14x14
+    windows)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for bh, g in ((12, 64), (300, 14)):
+        q, k, v, bias_h, bias_w = _sam_inputs(bh, g, g, 64, device, seed=47)
+        o = sa.sam_attention(q, k, v, bias_h, bias_w)
+        h.update(o.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# The digest of the bf16 SAM kernel built from the sources before its bias
+# policy moved into csrc/attention_bias.cuh (NVIDIA H100 80GB HBM3, nvcc 12.8).
+BF16_SAM_DIGEST = "c4e4c37163af8ee592ef93d4355e238c7b393a68"
+
+
+def test_bf16_sam_bits_are_unchanged_by_the_shared_bias_policy(cuda):
+    assert _bf16_sam_digest(cuda) == BF16_SAM_DIGEST

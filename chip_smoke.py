@@ -6,10 +6,10 @@
                           [--cli-f32-steps N] [--cli-steps N] [--optin-f32-steps N]
                           [--profile PATH]
 
-Ten phases; any failure exits nonzero before the final line is printed.
+Eleven phases; any failure exits nonzero before the final line is printed.
 Phases 3-7, 9 and 10 run on random weights (LMDX_CHECKPOINT_DIR is unset for
 them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
-10 a fabricated OWL-ViT.
+10 a fabricated OWL-ViT, phase 11 a fabricated SDXL refiner.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    seven), one nvcc per source, all started together, into build/kernels/,
@@ -30,7 +30,10 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    guidance), each with KV = L and L + 30 (the GLIGEN fuser); the backward
    at batch 4 (LMD's per-box guidance of 4 boxes; KV = L, as SD1.5 has no
    fuser), 2 (overall guidance; KV = L and L + 30) and 1 (single-image
-   guidance; KV = L and L + 30). SAM attention: one 4-image chunk and one
+   guidance; KV = L and L + 30); and the forward at the SDXL refiner's
+   head dim 64 (phase 11, REFINER_FWD_CASES: CFG batch 2 at 12 heads x 4096
+   tokens, 24 x 1024 and 24 x 256, KV = L), printed apart and in the totals.
+   SAM attention: one 4-image chunk and one
    2-image chunk of SAM ViT-B, the global layers (B*H = 48 and 24, N =
    64 x 64, d = 64) and the windowed ones (B*H = 1200 and 600, N = 14 x 14),
    with random f32 bias. Tolerance:
@@ -185,6 +188,25 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    and held bit for bit against its file; `lmdx_torch.cli.owl_vit_eval.main`
    over `<run>` (attribution prompts, 2 images) at --eval-batch-size 2 and 1:
    equal reports of 2 attribution images.
+11. The SDXL refiner (stabilityai/stable-diffusion-xl-refiner-1.0 at full
+   width: the 2.26B-parameter text_time UNet, head dim 64, and the OpenCLIP
+   bigG tower). (a) Its fp16 checkpoint (UNet, bigG in text_encoder_2/, VAE;
+   3.04B values, ~6.1 GB) fabricated at the published keys and shapes,
+   validated, loaded by `load_bundle` in bf16 and held bit for bit against
+   the files (load wall, GB/s of file, peak memory). (b)
+   `lmdx_torch.cli.generate.main` with `--run-model lmd_plus --sdxl` on the
+   first two demo layouts (3 boxes and 1), `--cli-steps` DDIM steps of LMD+
+   on random SD1.4+GLIGEN weights, with LMDX_CHECKPOINT_DIR pointing at (a)'s
+   directory and LMDX_ALLOW_WORD_TOKENIZER=1, set for this phase only: each
+   image upscaled to 1024x1024 (LANCZOS) and refined by img2img at strength
+   0.3 (15 Euler steps of 50, CFG 5, aesthetic-score ids). Checks: each
+   img_0.png is 1024x1024x3 uint8, not constant, and not the LANCZOS upscale
+   of the method's 512x512 image; each refinement launches kernel 1 exactly
+   15 x 44 = 660 times (the 20 + 20 + 4 self-attentions of a UNet call,
+   B*H 24 at 4096 tokens and 48 at 1024 and 256, all at head dim 64) and
+   nothing else; the d-64 shapes are exactly phase 2's refiner shapes and
+   every wrapper shape one phase 2 checked. Prints the refine wall per image
+   apart from the LMD+ wall and the refiner's load, and the peak memory.
 
 Matmuls and convolutions run in bf16 (phase 9 (a) and phase 10: float32); TF32 is turned
 off for both (torch.backends.cuda.matmul.allow_tf32 and
@@ -344,6 +366,11 @@ def _bound(total: dict, flops: float, nbytes: float,
 FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)] + [(6, 0), (6, 30)]
 BWD_CASES = [(2, 0), (2, 30), (4, 0), (1, 0), (1, 30)]
 FLASH_LEVELS = ((4096, 40), (1024, 80), (256, 160))   # (tokens, head_dim) at 8 heads
+# (batch, heads, tokens) of the SDXL refiner's self-attention at head dim 64
+# (phase 11): CFG batch 2; 12 heads at the 4096-token level, 24 at the
+# 1024-token level and the 256-token mid block. KV = L (no fuser).
+REFINER_FWD_CASES = ((2, 12, 4096), (2, 24, 1024), (2, 24, 256))
+REFINER_HEAD_DIM = 64
 # (B * heads, grid side) of SAM ViT-B's attention on a chunk of 4 images
 # (the batched LMD path), of 2 (one 2-box layout), of 3 and of 1 (phase 9's
 # demo layouts of 3 boxes and 1): global and windowed.
@@ -466,44 +493,58 @@ def _check_bwd(bwd, b, heads, L, lk, d, reps, dtype=None):
     torch.cuda.empty_cache()
 
 
-def phase_kernels():
+def _check_fwd(fwd, b, heads, L, lk, d, reps):
+    """Holds the bf16 flash forward against its plain version at one shape
+    and times it, its plain version and SDPA's flash forward op; returns
+    (ms, plain ms, bound ms, library ms)."""
     import torch
 
     from lmdx_torch.nn.kernels import flash_attention as fa
 
+    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+    q, k, v, _ = _inputs(b, heads, L, lk, d, seed=L + lk + b)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    e_o, ok_o = _err(o, o_ref)
+    e_l = (lse - lse_ref).abs().max().item()
+    if not (ok_o and e_l <= TOL_LSE):
+        fail(f"forward disagrees at B={b} h={heads} L={L} Lk={lk} d={d}: |dO|={e_o} "
+             f"|dLSE|={e_l}")
+    bh = b * heads
+    flops = 4 * bh * L * lk * d
+    nbytes = 2 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
+    bound = _bound(fwd, flops, nbytes)
+    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
+    plain = cuda_ms(lambda: fa.attention_fwd_plain(q, k, v), reps)
+    lib = _library_ms(fwd, "forward", lambda: sdpa(
+        q, k, v, 0.0, False, False, scale=d ** -0.5), reps)
+    _add(fwd, ms, plain, bound, lib, e_o)
+    log(f"  fwd B={b} h={heads} Lq={L} Lk={lk} d={d}: "
+        f"{_fmt(ms, plain, lib, bound, flops)} err O {e_o:.2e} LSE {e_l:.2e} "
+        f"(of max|plain| {_share(o, o_ref):.1e})")
+    del q, k, v, o, lse, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return ms, plain, bound, lib
+
+
+def phase_kernels():
     heads = 8
     fwd, bwd = _totals(), _totals()
-    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
     for L, d in FLASH_LEVELS:
         reps = 5 if L == 4096 else 20
-        scale = d ** -0.5
         for b, extra in FWD_CASES:
-            lk = L + extra
-            q, k, v, _ = _inputs(b, heads, L, lk, d, seed=L + lk + b)
-            o, lse = fa.flash_attention_fwd(q, k, v)
-            o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
-            torch.cuda.synchronize()
-            e_o, ok_o = _err(o, o_ref)
-            e_l = (lse - lse_ref).abs().max().item()
-            if not (ok_o and e_l <= TOL_LSE):
-                fail(f"forward disagrees at B={b} L={L} Lk={lk} d={d}: |dO|={e_o} "
-                     f"|dLSE|={e_l}")
-            bh = b * heads
-            flops = 4 * bh * L * lk * d
-            nbytes = 2 * bh * d * (2 * L + 2 * lk) + 4 * bh * L
-            bound = _bound(fwd, flops, nbytes)
-            ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), reps)
-            plain = cuda_ms(lambda: fa.attention_fwd_plain(q, k, v), reps)
-            lib = _library_ms(fwd, "forward", lambda: sdpa(
-                q, k, v, 0.0, False, False, scale=scale), reps)
-            _add(fwd, ms, plain, bound, lib, e_o)
-            log(f"  fwd B={b} h={heads} Lq={L} Lk={lk} d={d}: "
-                f"{_fmt(ms, plain, lib, bound, flops)} err O {e_o:.2e} LSE {e_l:.2e}")
-            del q, k, v, o, lse, o_ref, lse_ref
-            torch.cuda.empty_cache()
-
+            _check_fwd(fwd, b, heads, L, L + extra, d, reps)
         for b, extra in BWD_CASES:
             _check_bwd(bwd, b, heads, L, L + extra, d, reps)
+    # The SDXL refiner's self-attention (phase 11) at head dim 64, which no
+    # SD1.x UNet has; its sums are printed apart and count in the totals.
+    sums = [0.0] * 4
+    for b, h, L in REFINER_FWD_CASES:
+        times = _check_fwd(fwd, b, h, L, L, REFINER_HEAD_DIM, 10 if L == 4096 else 20)
+        sums = [a + (t or 0.0) for a, t in zip(sums, times)]
+    log(f"  fwd at d {REFINER_HEAD_DIM} (the refiner's {len(REFINER_FWD_CASES)} shapes): "
+        f"{sums[0]:.4f} ms (plain {sums[1]:.3f}, bound {sums[2]:.4f}, library {sums[3]:.4f})")
     default_ms = bwd["ms"]
     # The fused-heads gradient (phase 5) splits heads and calls the backward at
     # the KV lengths the default dispatch keeps on plain math: the 77-token
@@ -1599,7 +1640,8 @@ def _phase2_shapes():
     def flash(cases, dtype):
         return {(b, heads, L, L + e, d, dtype) for L, d in FLASH_LEVELS for b, e in cases}
 
-    return {"fwd": flash(FWD_CASES, "bfloat16") | flash(F32_FWD_CASES, "float32"),
+    refiner = {(b, h, L, L, REFINER_HEAD_DIM, "bfloat16") for b, h, L in REFINER_FWD_CASES}
+    return {"fwd": flash(FWD_CASES, "bfloat16") | flash(F32_FWD_CASES, "float32") | refiner,
             "bwd": flash(BWD_CASES, "bfloat16") | flash(F32_BWD_CASES, "float32"),
             "sam": ({(bh, g * g, "bfloat16") for bh, g in SAM_CASES}
                     | {(bh, g * g, "float32") for bh, g in F32_SAM_CASES})}
@@ -1680,12 +1722,12 @@ def phase_single(steps: int):
     return _sum_launches(all_launches)
 
 
-def _require_checked_shapes(label, seen):
-    """Fails unless each wrapper was given shapes, all of them ones phase 2
-    checked."""
+def _require_checked_shapes(label, seen, required=("fwd", "bwd", "sam")):
+    """Fails unless each `required` wrapper was given shapes, and every shape
+    any wrapper was given is one phase 2 checked."""
     checked = _phase2_shapes()
     for what, shapes in seen.items():
-        if not shapes or not shapes <= checked[what]:
+        if (what in required and not shapes) or not shapes <= checked[what]:
             fail(f"{label}: the {what} wrapper was given shapes phase 2 did not check: "
                  f"{sorted(shapes - checked[what])} (seen {sorted(shapes)})")
     log(f"{label}: every shape the flash and SAM wrappers were given was checked in phase 2 "
@@ -2308,6 +2350,188 @@ def phase_owlvit(run_dir: str, n_images: int):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+SDXL_REFINER = "stabilityai/stable-diffusion-xl-refiner-1.0"
+# Euler steps a refined image takes: the JAX side's img2img rule at strength
+# 0.3 of 50 steps starts at step 35 of the grid.
+REFINER_STEPS = 15
+
+
+def _refiner_launches_per_call(cfg) -> int:
+    """Kernel-1 launches of one refiner UNet call: every self-attention of the
+    attention levels and the mid block (their KV >= 256 tokens); the 77-token
+    cross-attentions stay plain math."""
+    u = cfg.unet
+    levels = len(u.block_out_channels)
+    down = sum(u.layers_per_block * u.transformer_depth(i)
+               for i, t in enumerate(u.down_block_types) if t.startswith("CrossAttn"))
+    up = sum((u.layers_per_block + 1) * u.transformer_depth(levels - 1 - i)
+             for i, t in enumerate(u.up_block_types) if t.startswith("CrossAttn"))
+    return down + up + u.transformer_depth(levels - 1)
+
+
+def phase_sdxl(plus_steps: int):
+    """Phase 11: the SDXL refiner. (a) Its fp16 checkpoint fabricated at the
+    published keys and shapes, validated, loaded by `load_bundle` and held bit
+    for bit against the files. (b) The stage-2 CLI with `--sdxl` on that
+    checkpoint (LMDX_CHECKPOINT_DIR and LMDX_ALLOW_WORD_TOKENIZER set for this
+    phase only): LMD+ on two demo layouts at `plus_steps` DDIM steps, each
+    image refined at 1024x1024 by 15 Euler steps, CFG 5."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from lmdx_torch.config import SD_CONFIGS
+    from lmdx_torch.eval.prompts import PROMPTS_DEMO
+    from lmdx_torch.methods import lmd_plus, sdxl_refine
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
+    from lmdx_torch.nn.kernels import sam_attention as sa
+    from lmdx_torch.runtime import convert, fabricate, models
+    from lmdx_torch.text.cache import LayoutCache
+
+    t_phase = time.perf_counter()
+    cfg = SD_CONFIGS[SDXL_REFINER]()
+    saved = {k: os.environ.pop(k, None)
+             for k in ("LMDX_CHECKPOINT_DIR", "LMDX_ALLOW_WORD_TOKENIZER", "LMDX_REFINER_MODEL")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="lmdx_sdxl_") as root:
+            # (a) the checkpoint.
+            t0 = time.perf_counter()
+            n_params = fabricate.fabricate_model(SDXL_REFINER, root, torch.float16)
+            ckpt = os.path.join(root, SDXL_REFINER.replace("/", "--"))
+            size = _dir_bytes(ckpt)
+            log(f"sdxl: fabricated {n_params / 1e9:.3f}B params in fp16 ({size / 1e9:.3f} GB: "
+                f"{sorted(os.listdir(ckpt))}) in {time.perf_counter() - t0:.1f} s")
+            report = convert.validate_checkpoint(SDXL_REFINER, ckpt)
+            if any(v for r in report.values() for v in r.values()):
+                fail(f"sdxl: the checkpoint does not match its manifests: {report}")
+            os.environ["LMDX_ALLOW_WORD_TOKENIZER"] = "1"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bundle = models.load_bundle(SDXL_REFINER, ckpt, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"sdxl: refiner loaded from {size / 1e9:.3f} GB in {wall:.2f} s "
+                f"({size / 1e9 / wall:.2f} GB/s of file), peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            n = _check_loaded("sdxl", {"unet": bundle.unet, "text": bundle.text_encoder,
+                                       "vae": bundle.vae},
+                              convert.load_checkpoint(bundle.config, ckpt),
+                              models.F32_PARAM_NAME_MARKERS)
+            log(f"sdxl: {n / 1e9:.3f}B loaded values equal the files' tensors bit for bit")
+            del bundle
+            torch.cuda.empty_cache()
+
+            # (b) the CLI with --sdxl on two demo layouts.
+            cache_path = os.path.join(root, "cache_demo_v0.1_gpt-4.json")
+            cache = LayoutCache(cache_path)
+            for prompt, response in zip(PROMPTS_DEMO, DEMO_RESPONSES):
+                cache.add(prompt.strip().rstrip("."), response)
+            os.environ["LMDX_CHECKPOINT_DIR"] = root
+            per_call = _refiner_launches_per_call(cfg)
+            plus_images, refined, loads = [], [], []
+            orig_run, orig_refine = lmd_plus.run, sdxl_refine.refine
+            orig_load = sdxl_refine.load_refiner_bundle
+
+            def run_and_keep(*a, **kw):
+                result = orig_run(*a, **kw)
+                plus_images.append(result.image)
+                return result
+
+            def load_timed(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = orig_load(*a, **kw)
+                torch.cuda.synchronize()
+                loads.append(time.perf_counter() - t)
+                return out
+
+            def refine_timed(image, spec, **kw):
+                before = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = orig_refine(image, spec, **kw)  # host numpy: synchronous
+                wall = time.perf_counter() - t
+                after = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+                refined.append((wall, {k: after[k] - before[k] for k in after}))
+                return out
+
+            save_dir = os.path.join(root, "out")
+            argv = ["--prompt-type", "demo", "--run-model", "lmd_plus", "--sdxl",
+                    "--num_prompts", "2", "--cache-path", cache_path, "--save-dir", save_dir,
+                    "--num_inference_steps", str(plus_steps), "--no-continue-on-error"]
+            lmd_plus.run, sdxl_refine.refine = run_and_keep, refine_timed
+            sdxl_refine.load_refiner_bundle = load_timed
+            try:
+                with _recording_shapes() as seen:
+                    fa.reset_launch_counts()
+                    sa.reset_launch_counts()
+                    gn.reset_launch_counts()
+                    torch.cuda.reset_peak_memory_stats()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _cli(argv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+            finally:
+                lmd_plus.run, sdxl_refine.refine = orig_run, orig_refine
+                sdxl_refine.load_refiner_bundle = orig_load
+                sdxl_refine._REFINER_CACHE.clear()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+
+            run_dir = os.path.join(save_dir, "templatev0.1_lmd_plus_demo", "run0")
+            if len(plus_images) != 2 or len(refined) != 2:
+                fail(f"sdxl: {len(plus_images)} LMD+ images, {len(refined)} refined (want 2, 2)")
+            for ind, small in enumerate(plus_images):
+                img = _read_png(os.path.join(run_dir, str(ind), "img_0.png"))
+                if (img.dtype.name != "uint8" or img.shape != (cfg.height, cfg.width, 3)
+                        or img.std() == 0):
+                    fail(f"sdxl: {run_dir}/{ind}/img_0.png is {img.dtype} {img.shape}, "
+                         f"std {img.std()}")
+                up = np.asarray(Image.fromarray(small).resize((cfg.width, cfg.height),
+                                                              Image.LANCZOS))
+                diff = np.abs(img.astype(np.int16) - up.astype(np.int16))
+                if diff.max() == 0:
+                    fail(f"sdxl: image {ind} is the LANCZOS upscale, not refined")
+                log(f"sdxl: image {ind}: {img.shape} uint8, std {img.std():.1f}; against the "
+                    f"LANCZOS upscale of the {small.shape[0]}x{small.shape[1]} image: mean "
+                    f"|diff| {diff.mean():.1f}, max {diff.max()}")
+            want = REFINER_STEPS * per_call
+            for i, (t, ref_launches) in enumerate(refined):
+                others = {k: v for k, v in ref_launches.items()
+                          if k != "flash_attention_fwd" and v}
+                if ref_launches["flash_attention_fwd"] != want or others:
+                    fail(f"sdxl: refine {i} launched {ref_launches} (want "
+                         f"flash_attention_fwd {want} = {REFINER_STEPS} steps x {per_call}, "
+                         f"nothing else)")
+            d64 = {s for s in seen["fwd"] if s[4] == REFINER_HEAD_DIM}
+            refiner_shapes = {(b, h, L, L, REFINER_HEAD_DIM, "bfloat16")
+                              for b, h, L in REFINER_FWD_CASES}
+            if d64 != refiner_shapes:
+                fail(f"sdxl: kernel 1 at d {REFINER_HEAD_DIM} was given {sorted(d64)}, "
+                     f"phase 2 checks {sorted(refiner_shapes)}")
+            walls = [t for t, _ in refined]
+            log(f"sdxl: CLI --sdxl, 2 LMD+ images at {plus_steps} DDIM steps, each refined at "
+                f"{cfg.height}x{cfg.width} by {REFINER_STEPS} Euler steps: wall {wall:.2f} s "
+                f"(refiner load {sum(loads):.2f} s, refine per image "
+                f"{', '.join(f'{t:.3f}' for t in walls)} s, LMD+ and the rest "
+                f"{wall - sum(loads) - sum(walls):.2f} s), peak memory {peak:.2f} GiB")
+            log(f"sdxl: launches of the phase {launches}; kernel 1 per refined image "
+                f"{want} ({REFINER_STEPS} x {per_call}) at d {REFINER_HEAD_DIM}")
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    _require_checked_shapes("sdxl", seen, required=("fwd", "bwd"))
+    log(f"sdxl: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -2332,8 +2556,9 @@ def main() -> None:
                     help="DDIM steps of phase 9's float32 LMD through the CLI (depth only; a "
                          "rehearsal flag: the check is the 50 steps of the default)")
     ap.add_argument("--cli-steps", type=int, default=20,
-                    help="DDIM steps of phase 9's batched bf16 LMD+ through the CLI (depth "
-                         "only: phase 3 runs the same work at 50 steps)")
+                    help="DDIM steps of phase 9's batched bf16 LMD+ and of phase 11's LMD+ "
+                         "before the refiner, through the CLI (depth only: phase 3 runs the "
+                         "same work at 50 steps; the refiner's 15 Euler steps are not cut)")
     ap.add_argument("--optin-f32-steps", type=int, default=50,
                     help="DDIM steps of phase 10's float32 LMD+ with every opt-in kernel "
                          "(depth only; a rehearsal flag: the check is the 50 steps of the "
@@ -2388,11 +2613,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="lmdx_f32_optin_") as run_dir:
         optin_f32 = phase_f32_optin(args.optin_f32_steps, run_dir)
         phase_owlvit(run_dir, len(ATTRIBUTION_RESPONSES))
+    sdxl = phase_sdxl(args.cli_steps)
     launches = {name: plus[name] + lmd[name] + optin[name] + single[name] + baselines[name]
-                + checkpoint[name] + cli[name] + optin_f32[name] for name in kernels}
+                + checkpoint[name] + cli[name] + optin_f32[name] + sdxl[name]
+                for name in kernels}
     log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
         f"single-image methods {single}, baselines and solvers {baselines}, "
-        f"checkpoint path {checkpoint}, CLI {cli}, float32 opt-in LMD+ path {optin_f32}")
+        f"checkpoint path {checkpoint}, CLI {cli}, float32 opt-in LMD+ path {optin_f32}, "
+        f"SDXL refiner through the CLI {sdxl}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -2427,7 +2655,8 @@ def main() -> None:
         for name, t in kernels.items()]}
     n_opt = len(OPTIN_BATCHES)
     log(f"kernel times: ms, plain_ms, bound_ms and library_ms are sums of one call "
-        f"at each shape above ({3 * len(FWD_CASES)} for the flash forward, "
+        f"at each shape above ({3 * len(FWD_CASES)} + {len(REFINER_FWD_CASES)} at d "
+        f"{REFINER_HEAD_DIM} for the flash forward, "
         f"{3 * len(BWD_CASES)} + {len(BWD_SHORT_KV)} for the backward, {len(SAM_CASES)} "
         f"for SAM, "
         f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
@@ -2438,8 +2667,8 @@ def main() -> None:
         f"{len(F32_SAM_CASES)} for float32 SAM, {4 * n_opt} for the float32 packed "
         f"forward, {len(F32_FUSED_CASES) * n_opt} for the float32 fused-heads forward); "
         f"launches are those of the LMD+, LMD and opt-in LMD+ paths, the single-image "
-        f"methods, the baselines and solvers, the checkpoint path, the CLI and the "
-        f"float32 opt-in LMD+ path together")
+        f"methods, the baselines and solvers, the checkpoint path, the CLI, the "
+        f"float32 opt-in LMD+ path and the SDXL refiner through the CLI together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -24,10 +24,18 @@ group with duplicate jobs whose images are discarded, so the batches the
 CLI runs are the JAX CLI's; `--warm-ahead` walks the classes in the
 JAX order and prints each one, with nothing to warm.
 
+`--sdxl` refines each image with the SDXL refiner
+(`methods/sdxl_refine.py`: LANCZOS upscale to 1024x1024, img2img at strength
+`--sdxl-step-ratio` on Euler, seed + LARGE_CONSTANT4) after the method and
+before the PNG is written, in both loops; the refiner bundle is built once,
+on the first refined image, at its own bfloat16 whatever `--use_autocast`
+says, from `$LMDX_CHECKPOINT_DIR/<model--key>` or random weights
+(LMDX_REFINER_MODEL names another configuration).
+
 Not ported, refused with the ROADMAP item that holds them: `--mesh`
-(`dist/`, section 1 item 10), `--sdxl`, `--use-sdv2` and SD2 / SDXL
-`--sd-model` keys (item 6). JAX's compile cache and multi-host start have
-no counterpart.
+(`dist/`, section 1 item 10), `--use-sdv2` and SD2 / SDXL `--sd-model` keys
+(item 6: an SDXL configuration serves only as the refiner). JAX's compile
+cache and multi-host start have no counterpart.
 
 Example (offline, cached layouts, the CPU and the tiny test model):
     python -m lmdx_torch.cli.generate --cpu --sd-model tiny-test \\
@@ -78,7 +86,8 @@ BOOL_INT_ARGS = {"horizontal_shift_only", "so_horizontal_center_only",
 
 NOT_PORTED_MESH = ("--mesh: device-mesh sharding (dist/) is not ported yet "
                    "(ROADMAP.md section 1 item 10)")
-NOT_PORTED_SD2 = "SD2 / SDXL are not ported yet (ROADMAP.md section 1 item 6)"
+NOT_PORTED_SD2 = ("SD2 and the SDXL base model are not ported yet (ROADMAP.md "
+                  "section 1 item 6)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,8 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cache-dir", default="cache")
     parser.add_argument("--save-dir", default="img_generations")
     parser.add_argument("--sdxl", action="store_true",
-                        help="not ported: the SDXL refiner (ROADMAP.md section 1 "
-                             "item 6); refused")
+                        help="refine each image with the SDXL refiner (1024x1024 "
+                             "img2img) before it is saved")
     parser.add_argument("--sdxl-step-ratio", type=float, default=0.3)
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (device='cpu'); without it the "
@@ -206,13 +215,14 @@ def not_ported(args) -> str | None:
     """Why the flags ask for code the port does not have, or None."""
     if args.mesh is not None:
         return NOT_PORTED_MESH
-    if args.sdxl:
-        return f"--sdxl: {NOT_PORTED_SD2}"
     if args.use_sdv2:
         return f"--use-sdv2: {NOT_PORTED_SD2}"
     if args.sd_model and args.sd_model not in SD_CONFIGS:
         return (f"--sd-model {args.sd_model}: not a configuration of the port "
                 f"({', '.join(sorted(SD_CONFIGS))}); {NOT_PORTED_SD2}")
+    if args.sd_model and SD_CONFIGS[args.sd_model]().unet.addition_embed_type:
+        return (f"--sd-model {args.sd_model}: an SDXL configuration serves only as "
+                f"the --sdxl refiner; {NOT_PORTED_SD2}")
     return None
 
 
@@ -298,12 +308,22 @@ def main(argv=None) -> int:
         else:
             warn_if_coarse_on_real_weights(bundle, segmenter, args.run_model)
 
+    refine = None
+    if args.sdxl and not args.dry_run:
+        from ..methods import sdxl_refine
+
+        def refine(image, spec, seed):
+            return sdxl_refine.refine(
+                image, spec, refine_seed=seed + LARGE_CONSTANT4,
+                refinement_step_ratio=args.sdxl_step_ratio,
+                bundle=sdxl_refine.load_refiner_bundle(device))
+
     if args.image_batch_size > 1:
         assert args.run_model in ("lmd", "lmd_plus"), \
             "--image-batch-size needs --run-model lmd or lmd_plus"
         assert args.regenerate == 1
         return run_batched(args, run_kwargs, cache, prompts, save_dir,
-                           bundle, segmenter)
+                           bundle, segmenter, refine)
 
     scale_boxes_default = not args.no_scale_boxes_default
     ind = 0
@@ -395,6 +415,8 @@ def main(argv=None) -> int:
                     for so_ind, so_img in enumerate(result.so_img_list):
                         Image.fromarray(so_img).save(
                             f"{img_dir}/so_{repeat_ind}_{so_ind}.png")
+                    if refine is not None:
+                        image = refine(image, spec, seed)
                     Image.fromarray(image).save(f"{img_dir}/img_{repeat_ind}.png")
             except KeyboardInterrupt:
                 raise
@@ -630,12 +652,14 @@ def group_class_key(group, pads):
             _pow2_bucket(max(counts)), len(group))
 
 
-def run_batched(args, run_kwargs, cache, prompts, save_dir, bundle, segmenter) -> int:
+def run_batched(args, run_kwargs, cache, prompts, save_dir, bundle, segmenter,
+                refine=None) -> int:
     """Throughput mode: group pending (prompt, repeat) jobs into batches of
     --image-batch-size and run them through the multi-image LMD / LMD+
     pipeline (lmdx_torch.methods.batch). Resume and seed semantics match the
     sequential loop. Pipelined (the default), a batch's images are copied
-    and saved after the next batch's work is launched."""
+    and saved after the next batch's work is launched. `refine(image, spec,
+    seed)` (`--sdxl`), when given, runs on each image before it is saved."""
     from ..methods.batch import run_lmd_batch, run_lmd_plus_batch
 
     run_batch_fn = (run_lmd_plus_batch if args.run_model == "lmd_plus"
@@ -690,7 +714,10 @@ def run_batched(args, run_kwargs, cache, prompts, save_dir, bundle, segmenter) -
                 from ..utils import vis
                 vis.mask_overlay(result.aux["masks"]).save(
                     f"{job['img_dir']}/masks_{job['repeat']}.png")
-            Image.fromarray(result.image).save(
+            image = result.image
+            if refine is not None:
+                image = refine(image, job["spec"], job["bg_seed"])
+            Image.fromarray(image).save(
                 f"{job['img_dir']}/img_{job['repeat']}.png")
         # Per-batch wall: boxes= lists the whole (pad-inclusive) batch;
         # img/s counts the saved images. Pipelined walls lag one batch.

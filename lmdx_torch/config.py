@@ -2,7 +2,8 @@
 
 Frozen dataclasses, field for field the same as the JAX side, so that a
 configuration names the same network in both packages. Served: SD1.5 (LMD),
-SD1.4+GLIGEN (LMD+) and the tiny CPU-test config.
+SD1.4+GLIGEN (LMD+), the SDXL refiner (the img2img pass behind the CLI's
+`--sdxl`) and the tiny CPU-test configs (`tiny-test`, `tiny-sdxl`).
 """
 
 from __future__ import annotations
@@ -43,8 +44,14 @@ class CLIPTextConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_length: int = 77
+    # "quick_gelu" for OpenAI CLIP (SD1.x), "gelu" (exact) for OpenCLIP.
     hidden_act: str = "quick_gelu"
     layer_norm_eps: float = 1e-5
+    # SDXL conditions on the penultimate layer's hidden states (clip-skip 2).
+    penultimate_hidden: bool = False
+    # Project the pooled EOS embedding (CLIP's text_projection); SDXL's
+    # pooled conditioning is the projected vector.
+    use_text_projection: bool = False
 
 
 @dataclass(frozen=True)
@@ -72,8 +79,18 @@ class UNetConfig:
     cross_attention_dim: int = 768
     # Heads per resolution level (SD1.x: 8 heads, head_dim = C / 8).
     num_attention_heads: tuple[int, ...] = (8, 8, 8, 8)
-    transformer_layers_per_block: int = 1
+    # int (every level) or per-level tuple.
+    transformer_layers_per_block: int | tuple[int, ...] = 1
     norm_num_groups: int = 32
+    # SDXL "text_time" conditioning: the pooled text embedding and the
+    # Fourier-embedded micro-conditioning ids, projected into the time
+    # embedding. None for SD1.x.
+    addition_embed_type: str | None = None
+    addition_time_embed_dim: int = 256
+    # pooled-text dim + addition_time_embed_dim * number of time ids
+    projection_class_embeddings_input_dim: int = 2816
+    # Linear (not 1x1 conv) projections in and out of each transformer.
+    use_linear_projection: bool = False
     freq_shift: int = 0
     flip_sin_to_cos: bool = True
     use_gligen: bool = False
@@ -83,6 +100,14 @@ class UNetConfig:
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    def head_dim(self, channels: int, level: int) -> int:
+        return channels // self.num_attention_heads[level]
+
+    def transformer_depth(self, level: int) -> int:
+        if isinstance(self.transformer_layers_per_block, int):
+            return self.transformer_layers_per_block
+        return self.transformer_layers_per_block[level]
 
 
 @dataclass(frozen=True)
@@ -96,6 +121,9 @@ class SDConfig:
     height: int = 512
     width: int = 512
     dtype: str = "bfloat16"
+    # The integrator the checkpoint's scheduler config names: "ddim" for the
+    # SD1.x bundles, "euler" (EulerDiscrete) for the SDXL refiner.
+    default_scheduler: str = "ddim"
 
     @property
     def vae_scale(self) -> int:
@@ -112,6 +140,11 @@ class SDConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def pooled_dim(self) -> int:
+        """Width of the pooled text embedding that text_time takes."""
+        return self.clip.hidden_size
+
 
 def sd15() -> SDConfig:
     """SD v1.5 (training-free LMD's base model)."""
@@ -122,6 +155,68 @@ def sd14_gligen() -> SDConfig:
     """SD v1.4 with GLIGEN grounding adapters (LMD+'s base model)."""
     return SDConfig(key="gligen/diffusers-generation-text-box",
                     unet=UNetConfig(use_gligen=True))
+
+
+def sdxl_refiner() -> SDConfig:
+    """The SDXL refiner (stabilityai/stable-diffusion-xl-refiner-1.0): one
+    OpenCLIP bigG tower (penultimate hidden states, projected pooled
+    embedding) shipped as text_encoder_2/, a 4-level UNet with 4 transformer
+    blocks at each attention level (none at the first and last), head dim 64,
+    linear projections, text_time conditioning on 5 ids (size, crop,
+    aesthetic score), 1024x1024, EulerDiscrete."""
+    return SDConfig(
+        key="stabilityai/stable-diffusion-xl-refiner-1.0",
+        unet=UNetConfig(
+            block_out_channels=(384, 768, 1536, 1536),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                              "CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D",
+                            "CrossAttnUpBlock2D", "UpBlock2D"),
+            cross_attention_dim=1280,
+            num_attention_heads=(6, 12, 24, 24),
+            transformer_layers_per_block=4,
+            use_linear_projection=True,
+            addition_embed_type="text_time",
+            projection_class_embeddings_input_dim=2560,  # 1280 + 256 * 5
+        ),
+        clip=CLIPTextConfig(hidden_size=1280, intermediate_size=5120, num_layers=32,
+                            num_heads=20, hidden_act="gelu", penultimate_hidden=True,
+                            use_text_projection=True),
+        text_encoder_dir="text_encoder_2",
+        height=1024,
+        width=1024,
+        default_scheduler="euler",
+    )
+
+
+def tiny_sdxl() -> SDConfig:
+    """Miniature SDXL-class config for CPU tests (per-level transformer
+    depth, text_time, linear projections; same as the JAX side)."""
+    return SDConfig(
+        key="tiny-sdxl",
+        unet=UNetConfig(
+            block_out_channels=(32, 64),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+            up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+            layers_per_block=1,
+            cross_attention_dim=32,
+            num_attention_heads=(2, 2),
+            transformer_layers_per_block=(1, 2),
+            norm_num_groups=8,
+            use_linear_projection=True,
+            addition_embed_type="text_time",
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=32 + 8 * 5,
+        ),
+        clip=CLIPTextConfig(vocab_size=1024, hidden_size=32, intermediate_size=64,
+                            num_layers=2, num_heads=2, penultimate_hidden=True,
+                            use_text_projection=True),
+        vae=VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
+                      norm_num_groups=8),
+        height=32,
+        width=32,
+        dtype="float32",
+    )
 
 
 def tiny_test() -> SDConfig:
@@ -152,5 +247,7 @@ def tiny_test() -> SDConfig:
 SD_CONFIGS = {
     "runwayml/stable-diffusion-v1-5": sd15,
     "gligen/diffusers-generation-text-box": sd14_gligen,
+    "stabilityai/stable-diffusion-xl-refiner-1.0": sdxl_refiner,
     "tiny-test": tiny_test,
+    "tiny-sdxl": tiny_sdxl,
 }

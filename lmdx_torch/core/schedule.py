@@ -1,5 +1,6 @@
-"""Noise schedules and sampler steps of the two VP-space solvers, DDIM and
-DPM-Solver++(2M) (port of the JAX core/schedule.py).
+"""Noise schedules and sampler steps of DDIM and DPM-Solver++(2M), the two
+VP-space solvers, and of Euler, the sigma-space one (port of the JAX
+core/schedule.py).
 
 A schedule is a pair of static grids `(timesteps, prev_timesteps)` built on
 the host with numpy, exactly as on the JAX side: scaled-linear betas
@@ -8,8 +9,15 @@ takes the leading-spaced grid with steps_offset 1, DPM-Solver++(2M)
 diffusers' linspace grid. The step math runs in f32 on whatever device the
 sample lives on: `ddim_step`, `dpmpp_2m_step` (with the lower-order-final
 rule of `dpm_lower_order_mask`), `ddim_inverse_step` for inversion and
-`add_noise` for the forward process. The Euler solver (sigma-space, the
-SDXL refiner's) is not ported yet: `make_schedule(solver="euler")` raises.
+`add_noise` for the forward process.
+
+Euler (diffusers 0.18's EulerDiscrete, the SDXL refiner's scheduler) keeps
+its grid as floats (`euler_timestep_grid`: linspace(0, T - 1, n) reversed)
+and carries `sigmas`, sqrt((1 - a) / a) interpolated at those timesteps with
+a trailing 0 (`euler_sigmas`); its samples live in sigma-space, x = x0 +
+sigma * noise (`euler_add_noise`), the UNet takes x / sqrt(sigma^2 + 1)
+(`euler_scale_model_input`), and `euler_step` moves x by eps * (sigma_next -
+sigma). `init_noise_sigma` is sqrt(max sigma^2 + 1).
 """
 
 from __future__ import annotations
@@ -21,11 +29,13 @@ import torch
 
 
 class Schedule(NamedTuple):
-    timesteps: np.ndarray         # (T,) int64 descending
+    timesteps: np.ndarray         # (T,) int64 descending (float32 for Euler)
     prev_timesteps: np.ndarray    # (T,); < 0 means the final step
     alphas_cumprod: np.ndarray    # (num_train_timesteps,) float32
     final_alpha_cumprod: float
     init_noise_sigma: float = 1.0
+    # Euler only: the noise levels of the grid, (T + 1,) float32 ending in 0.
+    sigmas: np.ndarray | None = None
 
     @property
     def num_steps(self) -> int:
@@ -55,6 +65,22 @@ def dpm_timestep_grid(num_inference_steps: int,
             .round()[::-1][:-1].astype(np.int64))
 
 
+def euler_timestep_grid(num_inference_steps: int,
+                        num_train_timesteps: int = 1000) -> np.ndarray:
+    """EulerDiscrete's grid (diffusers 0.18): linspace(0, T - 1, n) reversed,
+    kept as floats (the UNet embeds fractional timesteps)."""
+    return np.linspace(0, num_train_timesteps - 1, num_inference_steps,
+                       dtype=np.float64)[::-1].copy()
+
+
+def euler_sigmas(alphas_cumprod: np.ndarray, timesteps: np.ndarray) -> np.ndarray:
+    """sqrt((1 - a) / a) linearly interpolated at `timesteps`, and a trailing
+    0.0, as float32."""
+    full = np.sqrt((1.0 - alphas_cumprod) / alphas_cumprod)
+    sig = np.interp(timesteps, np.arange(len(full)), full)
+    return np.concatenate([sig, [0.0]]).astype(np.float32)
+
+
 def fast_schedule_timesteps(timesteps: np.ndarray, fast_after_steps: int,
                             fast_rate: int) -> np.ndarray:
     """Full resolution up to `fast_after_steps`, then every `fast_rate`-th."""
@@ -67,6 +93,17 @@ def fast_schedule_timesteps(timesteps: np.ndarray, fast_after_steps: int,
 def make_schedule(num_inference_steps: int, num_train_timesteps: int = 1000,
                   fast_after_steps: int | None = None, fast_rate: int = 2,
                   solver: str = "ddim") -> Schedule:
+    if solver == "euler":
+        alphas_cumprod = make_alphas_cumprod(num_train_timesteps)
+        timesteps = euler_timestep_grid(num_inference_steps, num_train_timesteps)
+        sigmas = euler_sigmas(alphas_cumprod, timesteps)
+        return Schedule(
+            timesteps=timesteps.astype(np.float32),
+            prev_timesteps=np.concatenate([timesteps[1:], [0.0]]).astype(np.float32),
+            alphas_cumprod=alphas_cumprod,
+            final_alpha_cumprod=float(alphas_cumprod[0]),
+            init_noise_sigma=float(np.sqrt(sigmas.max() ** 2 + 1.0)),
+            sigmas=sigmas)
     if solver == "dpmpp_2m":
         timesteps = dpm_timestep_grid(num_inference_steps, num_train_timesteps)
     elif solver == "ddim":
@@ -165,6 +202,27 @@ def dpmpp_2m_step(schedule: Schedule, eps: torch.Tensor, t: int, next_t: int,
         d = (1.0 + coeff) * x0 - coeff * prev_x0.float()
     out = (sigma_s / sigma_t) * sample32 - alpha_s * (torch.exp(-h) - 1.0) * d
     return out.to(sample.dtype), x0.to(sample.dtype)
+
+
+def euler_step(eps: torch.Tensor, sigma, sigma_next, sample: torch.Tensor) -> torch.Tensor:
+    """One deterministic Euler update in sigma-space (EulerDiscrete.step,
+    s_churn 0, epsilon prediction): x + eps * (sigma_next - sigma), in f32.
+    `sigma`, `sigma_next`: f32 scalars."""
+    d = torch.as_tensor(sigma_next, dtype=torch.float32) - torch.as_tensor(
+        sigma, dtype=torch.float32)
+    return (sample.float() + eps.float() * d.to(sample.device)).to(sample.dtype)
+
+
+def euler_scale_model_input(sample: torch.Tensor, sigma) -> torch.Tensor:
+    """The UNet's input in sigma-space: x / sqrt(sigma^2 + 1)."""
+    sigma = torch.as_tensor(sigma, dtype=torch.float32)
+    return sample / torch.sqrt(sigma * sigma + 1.0).to(sample.device)
+
+
+def euler_add_noise(x0: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:
+    """The forward process in sigma-space: x0 + sigma * noise, in f32."""
+    sigma = torch.as_tensor(sigma, dtype=torch.float32).to(x0.device)
+    return (x0.float() + noise.float() * sigma).to(x0.dtype)
 
 
 def dpm_lower_order_mask(num_steps: int) -> np.ndarray:

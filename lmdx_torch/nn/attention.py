@@ -280,18 +280,23 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """GroupNorm -> 1x1 proj_in -> transformer blocks over the H*W tokens ->
-    1x1 proj_out, residual. NCHW in and out; tokens are taken in (h, w)
-    row-major order, the order of the JAX side's NHWC reshape."""
+    """GroupNorm -> proj_in -> transformer blocks over the H*W tokens ->
+    proj_out, residual. NCHW in and out; tokens are taken in (h, w) row-major
+    order, the order of the JAX side's NHWC reshape. The projections are 1x1
+    convolutions, or under `use_linear_projection` (SD2 / SDXL) `Linear`
+    layers on the token layout."""
 
     def __init__(self, channels: int, heads: int, context_dim: int,
                  depth: int = 1, norm_num_groups: int = 32,
                  tap_prefix: str | None = None,
                  use_gated_attention: bool = False, dtype=torch.float32,
-                 options: KernelOptions = KernelOptions()):
+                 options: KernelOptions = KernelOptions(),
+                 use_linear_projection: bool = False):
         super().__init__()
+        self.use_linear_projection = use_linear_projection
         self.norm = group_norm(norm_num_groups, channels, 1e-6, options)
-        self.proj_in = Conv2d(channels, channels, 1)
+        proj = Linear if use_linear_projection else (lambda i, o: Conv2d(i, o, 1))
+        self.proj_in = proj(channels, channels)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(
                 channels, heads, channels // heads, context_dim,
@@ -299,16 +304,20 @@ class Transformer2D(nn.Module):
                 use_gated_attention=use_gated_attention, dtype=dtype,
                 options=options)
             for k in range(depth)])
-        self.proj_out = Conv2d(channels, channels, 1)
+        self.proj_out = proj(channels, channels)
 
     def forward(self, x, context, objs=None, taps: TapSpec = NO_TAPS,
                 tap_token_index=None, taps_out=None):
         b, c, h, w = x.shape
         residual = x
-        y = self.proj_in(self.norm(x))
-        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        if self.use_linear_projection:
+            y = self.proj_in(self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            y = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
             y = block(y, context, objs=objs, taps=taps,
                       tap_token_index=tap_token_index, taps_out=taps_out)
+        if self.use_linear_projection:
+            return self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
         y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(y) + residual

@@ -89,7 +89,7 @@ class CrossAttnDownBlock(nn.Module):
     def __init__(self, in_channels, out_channels, temb_dim, num_layers, heads,
                  context_dim, depth=1, norm_num_groups=32, add_downsample=True,
                  use_gated_attention=False, tap_place="down_0", dtype=torch.float32,
-                 options=KernelOptions()):
+                 options=KernelOptions(), use_linear_projection=False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock(in_channels if i == 0 else out_channels, out_channels,
@@ -99,7 +99,7 @@ class CrossAttnDownBlock(nn.Module):
             Transformer2D(out_channels, heads, context_dim, depth, norm_num_groups,
                           tap_prefix=f"{tap_place}_{i}",
                           use_gated_attention=use_gated_attention, dtype=dtype,
-                          options=options)
+                          options=options, use_linear_projection=use_linear_projection)
             for i in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample(out_channels)])
                              if add_downsample else None)
@@ -143,7 +143,7 @@ class DownBlock(nn.Module):
 class MidBlock(nn.Module):
     def __init__(self, channels, temb_dim, heads, context_dim, depth=1,
                  norm_num_groups=32, use_gated_attention=False, dtype=torch.float32,
-                 options=KernelOptions()):
+                 options=KernelOptions(), use_linear_projection=False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock(channels, channels, temb_dim, norm_num_groups, options=options)
@@ -152,7 +152,7 @@ class MidBlock(nn.Module):
             Transformer2D(channels, heads, context_dim, depth, norm_num_groups,
                           tap_prefix="mid_0_0",
                           use_gated_attention=use_gated_attention, dtype=dtype,
-                          options=options)])
+                          options=options, use_linear_projection=use_linear_projection)])
 
     def forward(self, x, t_emb, context, objs=None, taps: TapSpec = NO_TAPS,
                 tap_token_index=None, taps_out=None):
@@ -166,7 +166,8 @@ class CrossAttnUpBlock(nn.Module):
     def __init__(self, out_channels, prev_channels, temb_dim,
                  num_layers, heads, context_dim, depth=1, norm_num_groups=32,
                  add_upsample=True, use_gated_attention=False, tap_place="up_0",
-                 dtype=torch.float32, skip_channels=None, options=KernelOptions()):
+                 dtype=torch.float32, skip_channels=None, options=KernelOptions(),
+                 use_linear_projection=False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock((prev_channels if i == 0 else out_channels) + skip_channels[i],
@@ -176,7 +177,7 @@ class CrossAttnUpBlock(nn.Module):
             Transformer2D(out_channels, heads, context_dim, depth, norm_num_groups,
                           tap_prefix=f"{tap_place}_{i}",
                           use_gated_attention=use_gated_attention, dtype=dtype,
-                          options=options)
+                          options=options, use_linear_projection=use_linear_projection)
             for i in range(num_layers)])
         self.upsamplers = (nn.ModuleList([Upsample(out_channels)])
                            if add_upsample else None)

@@ -1,7 +1,10 @@
 """CLIP text encoder (port of the JAX package's nn/clip.py), with the
-transformers key names (text_model.embeddings..., text_model.encoder.layers.N...).
-Returns the last hidden state (the UNet conditioning) and the pooled EOS-token
-embedding (the GLIGEN phrase embedding).
+transformers key names (text_model.embeddings..., text_model.encoder.layers.N...,
+text_projection). Returns the last hidden state (the UNet conditioning) and
+the pooled EOS-token embedding (the GLIGEN phrase embedding). OpenCLIP towers
+(the SDXL refiner's bigG) take exact GELU, return the penultimate layer's
+hidden state under `penultimate_hidden`, and project the pooled embedding
+with `text_projection` under `use_text_projection`.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ def _act(name: str, x):
     if name == "quick_gelu":
         return x * torch.sigmoid(1.702 * x)
     if name == "gelu":
-        return F.gelu(x)
+        return F.gelu(x, approximate="none")
     raise ValueError(name)
 
 
@@ -95,6 +98,8 @@ class CLIPTextEncoder(nn.Module):
         super().__init__()
         self.config = cfg
         self.text_model = _TextModel(cfg, dtype)
+        self.text_projection = (Linear(cfg.hidden_size, cfg.hidden_size, bias=False)
+                                if cfg.use_text_projection else None)
 
     def forward(self, input_ids: torch.Tensor, eos_token_id: int = 49407):
         tm = self.text_model
@@ -103,9 +108,14 @@ class CLIPTextEncoder(nn.Module):
              + tm.embeddings.position_embedding.weight[None, :l])
         mask = torch.triu(torch.full((l, l), -1e9, dtype=torch.float32,
                                      device=input_ids.device), diagonal=1)
-        for layer in tm.encoder.layers:
+        penultimate = None
+        for i, layer in enumerate(tm.encoder.layers):
             x = layer(x, mask)
+            if i == len(tm.encoder.layers) - 2:
+                penultimate = x
         x = tm.final_layer_norm(x)
         eos_pos = (input_ids == eos_token_id).int().argmax(dim=-1)
         pooled = x[torch.arange(b, device=x.device), eos_pos]
-        return x, pooled
+        if self.config.use_text_projection:
+            pooled = self.text_projection(pooled)
+        return (penultimate if self.config.penultimate_hidden else x), pooled

@@ -3,12 +3,18 @@ JAX package's nn/unet.py).
 
     eps, taps = apply_unet(unet, latents_nhwc, t, context, objs=...,
                            taps=TapSpec(...), tap_token_index=...,
+                           added_text_embeds=..., added_time_ids=...,
                            stop_after_taps=...)
 
 Latents are NHWC at the interface (as on the JAX side) and NCHW inside. `taps`
 is {AttnKey: (B, heads, n, L or 1)} f32 for the requested keys. With
 `stop_after_taps` the forward ends after the last block holding a tapped
-layer and eps is None: guidance passes read only the taps.
+layer and eps is None: guidance passes read only the taps. A UNet with
+text_time conditioning (SDXL) takes the pooled text embedding and the
+micro-conditioning ids (`added_text_embeds`, `added_time_ids`): each id is
+Fourier-embedded, concatenated after the pooled embedding and projected by
+`add_embedding` into the time embedding. The transformer depth is per level
+(`UNetConfig.transformer_depth`; the mid block takes the last level's).
 """
 
 from __future__ import annotations
@@ -77,9 +83,12 @@ class UNet2DCondition(nn.Module):
         self.config = cfg
         ch = cfg.block_out_channels
         temb = cfg.time_embed_dim
-        depth = cfg.transformer_layers_per_block
+        linear = cfg.use_linear_projection
         self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], temb)
+        self.add_embedding = (
+            TimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb)
+            if cfg.addition_embed_type == "text_time" else None)
 
         skips = [ch[0]]  # channels of every residual, in push order
         self.down_blocks = nn.ModuleList()
@@ -89,9 +98,10 @@ class UNet2DCondition(nn.Module):
             if block_type == "CrossAttnDownBlock2D":
                 block = CrossAttnDownBlock(
                     prev, ch[i], temb, cfg.layers_per_block, cfg.num_attention_heads[i],
-                    cfg.cross_attention_dim, depth, cfg.norm_num_groups,
+                    cfg.cross_attention_dim, cfg.transformer_depth(i), cfg.norm_num_groups,
                     add_downsample=not last, use_gated_attention=cfg.use_gligen,
-                    tap_place=f"down_{i}", dtype=dtype, options=kernels)
+                    tap_place=f"down_{i}", dtype=dtype, options=kernels,
+                    use_linear_projection=linear)
             elif block_type == "DownBlock2D":
                 block = DownBlock(prev, ch[i], temb, cfg.layers_per_block,
                                   cfg.norm_num_groups, add_downsample=not last,
@@ -103,9 +113,9 @@ class UNet2DCondition(nn.Module):
             prev = ch[i]
 
         self.mid_block = MidBlock(ch[-1], temb, cfg.num_attention_heads[-1],
-                                  cfg.cross_attention_dim, depth, cfg.norm_num_groups,
-                                  use_gated_attention=cfg.use_gligen, dtype=dtype,
-                                  options=kernels)
+                                  cfg.cross_attention_dim, cfg.transformer_depth(len(ch) - 1),
+                                  cfg.norm_num_groups, use_gated_attention=cfg.use_gligen,
+                                  dtype=dtype, options=kernels, use_linear_projection=linear)
 
         self.up_blocks = nn.ModuleList()
         rev = list(reversed(ch))
@@ -117,10 +127,11 @@ class UNet2DCondition(nn.Module):
             if block_type == "CrossAttnUpBlock2D":
                 block = CrossAttnUpBlock(
                     rev[i], prev, temb, n_up, cfg.num_attention_heads[level],
-                    cfg.cross_attention_dim, depth, cfg.norm_num_groups,
-                    add_upsample=not last, use_gated_attention=cfg.use_gligen,
-                    tap_place=f"up_{i}", dtype=dtype, skip_channels=block_skips,
-                    options=kernels)
+                    cfg.cross_attention_dim, cfg.transformer_depth(level),
+                    cfg.norm_num_groups, add_upsample=not last,
+                    use_gated_attention=cfg.use_gligen, tap_place=f"up_{i}", dtype=dtype,
+                    skip_channels=block_skips, options=kernels,
+                    use_linear_projection=linear)
             elif block_type == "UpBlock2D":
                 block = UpBlock(rev[i], prev, temb, n_up, cfg.norm_num_groups,
                                 add_upsample=not last, skip_channels=block_skips,
@@ -136,7 +147,8 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states, objs=None,
                 taps: TapSpec = NO_TAPS, tap_token_index=None,
-                stop_after_taps: bool = False, taps_out: dict | None = None):
+                stop_after_taps: bool = False, taps_out: dict | None = None,
+                added_text_embeds=None, added_time_ids=None):
         cfg = self.config
         stop_point = _last_tap_point(taps) if stop_after_taps else None
         dtype = self.conv_in.weight.dtype
@@ -146,6 +158,15 @@ class UNet2DCondition(nn.Module):
         t_feat = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                     cfg.flip_sin_to_cos, cfg.freq_shift)
         t_emb = self.time_embedding(t_feat)
+        if self.add_embedding is not None:
+            if added_text_embeds is None or added_time_ids is None:
+                raise ValueError("text_time conditioning needs added_text_embeds and "
+                                 "added_time_ids")
+            id_emb = timestep_embedding(
+                added_time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                cfg.flip_sin_to_cos, cfg.freq_shift).reshape(added_time_ids.shape[0], -1)
+            aug = torch.cat([added_text_embeds.to(id_emb.dtype), id_emb], dim=-1)
+            t_emb = t_emb + self.add_embedding(aug)
 
         x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
         context = encoder_hidden_states.to(dtype)
@@ -197,10 +218,12 @@ def _last_tap_point(taps: TapSpec):
 
 def apply_unet(unet: UNet2DCondition, sample, timesteps, encoder_hidden_states,
                objs=None, taps: TapSpec = NO_TAPS, tap_token_index=None,
-               stop_after_taps: bool = False):
+               stop_after_taps: bool = False, added_text_embeds=None,
+               added_time_ids=None):
     """Returns (eps (B, H, W, C) f32 or None, {AttnKey: probs})."""
     taps_out: dict = {}
     eps = unet(sample, timesteps, encoder_hidden_states, objs=objs, taps=taps,
                tap_token_index=tap_token_index, stop_after_taps=stop_after_taps,
-               taps_out=taps_out)
+               taps_out=taps_out, added_text_embeds=added_text_embeds,
+               added_time_ids=added_time_ids)
     return eps, taps_out

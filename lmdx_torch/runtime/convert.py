@@ -9,6 +9,9 @@ numpy leaves ({"unet", "text", "vae", "position_net"}) and returns
 - Conv kernel HWIO         -> Conv2d weight OIHW
 - norm `scale`             -> `weight`; Embed `embedding` -> `weight`
 - GLIGEN `alpha_attn` / `alpha_dense` and PositionNet null features as they are
+- the SDXL parameters by the same rules: `add_embedding.linear_{1,2}`, the
+  Dense `proj_in` / `proj_out` of a linear-projection transformer (Linear
+  weights), CLIP's bias-free `text_projection`
 
 The VAE is converted whole: encoder, quant_conv, decoder, post_quant_conv.
 
@@ -19,7 +22,8 @@ side's `convert_sam` maps onto that tree: its exact inverse.
 `OwlViTForObjectDetection` names, the inverse of `convert_owlvit`).
 
 Checkpoint directories (diffusers / transformers layout, `<dir>/unet`,
-`<dir>/text_encoder`, `<dir>/vae`; SAM in one directory):
+`<dir>/text_encoder` (the SDXL refiner: `<dir>/text_encoder_2`), `<dir>/vae`;
+SAM in one directory):
 `load_checkpoint(config, dir)` reads them into state dicts named as the
 port's modules name their parameters, in the file's dtype and still on the
 host (a safetensors file is mapped, not copied: `safetensors_io`);
@@ -283,6 +287,10 @@ _COMPONENT_MANIFESTS = {
     "gligen/diffusers-generation-text-box": {
         "unet": "unet_gligen", "text_encoder": "text_encoder_clip_vit_l",
         "vae": "vae_sd"},
+    # The SDXL refiner ships its one (bigG) tower as text_encoder_2/.
+    "stabilityai/stable-diffusion-xl-refiner-1.0": {
+        "unet": "unet_sdxl_refiner", "text_encoder_2": "text_encoder_clip_bigg",
+        "vae": "vae_sd"},
 }
 SAM_MANIFEST = "sam_vit_base"
 
@@ -376,7 +384,8 @@ def _modern_vae(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 
 def load_checkpoint(config: SDConfig, checkpoint_dir: str) -> dict:
-    """A diffusers checkpoint directory -> {"unet", "text", "vae"[,
+    """A diffusers checkpoint directory (the text tower from
+    `config.text_encoder_dir`) -> {"unet", "text", "vae"[,
     "position_net"]} state dicts for `runtime.models.build_bundle`, named as
     the port's modules name their parameters: `*.position_ids` dropped, the
     VAE attention in the modern names, GLIGEN's `position_net.*` split off

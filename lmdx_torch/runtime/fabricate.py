@@ -1,10 +1,13 @@
 """Random checkpoints with the key names and shapes of the published ones.
 
     python -m lmdx_torch.runtime.fabricate --root DIR [--models KEY ...] [--sam]
-                                           [--owlvit] [--dtype float16|float32]
+                                           [--owlvit] [--sdxl-refiner]
+                                           [--dtype float16|float32]
 
 Writes `<root>/<model--key>/{unet,text_encoder,vae}/` (diffusers file names)
-for each SD model key, with `--sam`, `<root>/facebook--sam-vit-base/` and,
+for each SD model key (the SDXL refiner's tower in `text_encoder_2/`:
+`--sdxl-refiner` adds `stabilityai/stable-diffusion-xl-refiner-1.0`, 3.038B
+values, 6.08 GB in fp16), with `--sam`, `<root>/facebook--sam-vit-base/` and,
 with `--owlvit`, `<root>/google--owlvit-base-patch32/` (153.2M values, 0.31
 GB in fp16), in the safetensors format, with exactly the keys and shapes of the manifests
 (`runtime/manifests/`). Values: norm weights 1 (a zero scale would zero every
@@ -38,8 +41,10 @@ from . import convert, safetensors_io
 # probes first for it.
 FILENAMES = {"unet": "diffusion_pytorch_model.safetensors",
              "vae": "diffusion_pytorch_model.safetensors",
-             "text_encoder": "model.safetensors"}
+             "text_encoder": "model.safetensors",
+             "text_encoder_2": "model.safetensors"}
 SAM_KEY = "facebook/sam-vit-base"
+SDXL_REFINER_KEY = "stabilityai/stable-diffusion-xl-refiner-1.0"
 OWLVIT_KEY = "google/owlvit-base-patch32"
 DTYPES = {"float16": torch.float16, "float32": torch.float32}
 
@@ -106,10 +111,14 @@ def main(argv=None) -> int:
                     choices=sorted(convert._COMPONENT_MANIFESTS))
     ap.add_argument("--sam", action="store_true", help="also facebook--sam-vit-base")
     ap.add_argument("--owlvit", action="store_true", help="also google--owlvit-base-patch32")
+    ap.add_argument("--sdxl-refiner", action="store_true", help=f"also {SDXL_REFINER_KEY}")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     args = ap.parse_args(argv)
     dtype = DTYPES[args.dtype]
-    for key in args.models:
+    models = list(args.models)
+    if args.sdxl_refiner and SDXL_REFINER_KEY not in models:
+        models.append(SDXL_REFINER_KEY)
+    for key in models:
         t0 = time.perf_counter()
         n = fabricate_model(key, args.root, dtype)
         print(f"{key}: {n / 1e9:.3f}B params ({args.dtype}) in "

@@ -181,7 +181,9 @@ def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
     """Bundle for `model_key`, the JAX side's `load_bundle` on the port.
 
     checkpoint_dir: a diffusers checkpoint directory (`unet/`, `vae/`,
-    `text_encoder/`, optionally `tokenizer/`); when None,
+    `text_encoder/` or the config's `text_encoder_dir`, the SDXL refiner's
+    `text_encoder_2/`; optionally `tokenizer/`, the only tokenizer
+    directory read, as on the JAX side); when None,
     `$LMDX_CHECKPOINT_DIR/<model_key with / as -->` if that directory exists,
     else random weights from `seed`. The tokenizer is the CLIP BPE of
     `<checkpoint>/tokenizer/vocab.json` when there is one; a checkpoint of a
@@ -334,7 +336,10 @@ def build_owlvit(config: OwlViTConfig | None = None, state_dict: dict | None = N
 
 @torch.no_grad()
 def encode_text(bundle: ModelBundle, texts: list[str]):
-    """Raw texts -> (hidden (N, 77, D) f32, pooled (N, D) f32) on the device."""
+    """Raw texts -> (hidden (N, 77, D) f32, pooled (N, D) f32) on the device,
+    as the config's tower gives them: the last hidden state and the pooled
+    EOS embedding (SD1.x), or the penultimate hidden state and the projected
+    pooled embedding (the SDXL refiner's bigG)."""
     ids = np.asarray(
         [bundle.tokenizer.encode(t, pad_to=toklib.MAX_LENGTH) for t in texts], np.int64)
     # Reduced-vocab test configs only: fold ids into the model's vocab.

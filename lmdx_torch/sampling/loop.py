@@ -6,8 +6,13 @@ of a batch of independent images (`guidance_batched`), BoxDiff's one-step
 box-constraint guidance (a `BoxDiffSpec` as `spec`), GLIGEN scheduled
 sampling and frozen-mask regeneration, on either VP-space solver: DDIM or
 DPM-Solver++(2M), whose multistep state (the previous step's x0 and t)
-carries across steps and segments. As on the JAX side the run is cut into
-segments at the feature boundaries (guidance `max_index_step`, fuser
+carries across steps and segments; and plain CFG sampling on Euler, the
+sigma-space solver of the SDXL refiner (the UNet takes the scaled input
+x / sqrt(sigma^2 + 1); energy guidance is defined on the VP-space solvers
+only and is refused there, as the JAX side asserts). `added_cond` (pooled
+text embeddings, time ids), both (2B, ...) [uncond; cond], reaches the
+UNet's text_time conditioning on both CFG halves. As on the JAX side the
+run is cut into segments at the feature boundaries (guidance `max_index_step`, fuser
 steps, frozen steps) and every step of a segment runs the same features;
 here a segment is a plain Python loop over its steps. Each step: the
 guidance (autograd through the early-exit, cond-only UNet), one
@@ -15,7 +20,7 @@ CFG-doubled UNet forward (saving taps when asked), the solver update, and
 the frozen-mask splice.
 
 `invert` runs DDIM inversion from x0 towards x_T with the reference's
-conventions. The Euler solver (the SDXL refiner's) is not ported yet.
+conventions.
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ def sample(
     save_single_token: bool = False,
     tap_token_index=None,
     guidance_batched: bool = False,        # guidance_data has a leading image axis
-    solver: str = "ddim",                  # "ddim" | "dpmpp_2m"
+    solver: str = "ddim",                  # "ddim" | "dpmpp_2m" | "euler"
+    added_cond: tuple | None = None,       # (text_embeds (2B, D), time_ids (2B, K))
 ) -> SampleOutput:
     num_steps = schedule.num_steps
     has_guidance = spec is not None and guidance_data is not None
@@ -98,8 +104,14 @@ def sample(
     if frozen_mask is not None:
         fm = frozen_mask.float()
         fm = fm[None, :, :, None] if fm.dim() == 2 else fm[:, :, :, None]
-    if solver not in ("ddim", "dpmpp_2m"):
+    if solver not in ("ddim", "dpmpp_2m", "euler"):
         raise NotImplementedError(f"solver {solver!r} is not ported yet")
+    if solver == "euler" and has_guidance:
+        raise ValueError("energy guidance is defined on the VP-space solvers (ddim, "
+                         "dpmpp_2m); the euler path serves the SDXL refiner, which has none")
+    added = {}
+    if added_cond is not None:
+        added = {"added_text_embeds": added_cond[0], "added_time_ids": added_cond[1]}
     dpm_first = sched.dpm_lower_order_mask(num_steps)
     # DPM-Solver++'s multistep state: no history yet.
     prev_x0, prev_tc = torch.zeros_like(latents), -1000
@@ -115,7 +127,8 @@ def sample(
         objs_full, objs_guidance = gligen if seg_fuser else (None, None)
 
         for i in range(start, stop):
-            t = int(schedule.timesteps[i])
+            # Euler's grid is fractional (its step reads `sigmas`, not prev_t).
+            t = float(schedule.timesteps[i]) if solver == "euler" else int(schedule.timesteps[i])
             prev_t = int(schedule.prev_timesteps[i])
 
             if seg_guidance:
@@ -140,13 +153,19 @@ def sample(
                         ref_taps=ref)
 
             with torch.no_grad():
+                latent_in = torch.cat([latents, latents], dim=0)
+                if solver == "euler":
+                    latent_in = sched.euler_scale_model_input(latent_in, schedule.sigmas[i])
                 eps, taps = apply_unet(
-                    unet, torch.cat([latents, latents], dim=0), t, text_embeddings,
+                    unet, latent_in, t, text_embeddings,
                     objs=objs_full, taps=save_tapspec,
-                    tap_token_index=tap_token_index)
+                    tap_token_index=tap_token_index, **added)
                 eps_uncond, eps_cond = eps.chunk(2, dim=0)
                 eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
-                if solver == "dpmpp_2m":
+                if solver == "euler":
+                    latents = sched.euler_step(eps, schedule.sigmas[i],
+                                               schedule.sigmas[i + 1], latents)
+                elif solver == "dpmpp_2m":
                     latents, prev_x0 = sched.dpmpp_2m_step(
                         schedule, eps, t, prev_t, latents, prev_x0, prev_tc,
                         force_first_order=bool(dpm_first[i]))

@@ -63,9 +63,10 @@ def tiny_params(seed: int = 0, config=None):
     return jax.tree_util.tree_map_with_path(lambda p, x: _value(p, x, rng), shapes)
 
 
-def tiny_bundles(seed: int = 0):
-    """(JAX bundle, port bundle on the CPU) of the tiny-test config."""
-    config = jmodels.SD_CONFIGS["tiny-test"]()
+def tiny_bundles(seed: int = 0, key: str = "tiny-test"):
+    """(JAX bundle, port bundle on the CPU) of the tiny-test config (or the
+    tiny config `key`, e.g. tiny-sdxl)."""
+    config = jmodels.SD_CONFIGS[key]()
     params = tiny_params(seed, config)
     unet, text_encoder, vae, position_net = jmodels.build_modules(config)
     jb = jmodels.ModelBundle(
@@ -73,7 +74,7 @@ def tiny_bundles(seed: int = 0):
         text_encoder=text_encoder, vae=vae, position_net=position_net,
         params=jax.device_put(params),
         text_encoder_2=jmodels.build_text_encoder_2(config))
-    tcfg = tconfig.tiny_test()
+    tcfg = tconfig.SD_CONFIGS[key]()
     tb = tmodels.build_bundle(tcfg, convert.from_jax_params(params, tcfg), device="cpu")
     return jb, tb
 

@@ -91,10 +91,14 @@ def test_gligen_grounding_reaches_the_latents(monkeypatch, bundles):
 
 
 def test_scheduler_other_than_ddim_is_refused(bundles):
-    # DPM-Solver++(2M) is ported (tests/test_torch_dpm_invert.py); Euler, the
-    # SDXL refiner's sigma-space solver, is the one still refused.
+    # DPM-Solver++(2M) is ported (tests/test_torch_dpm_invert.py) and so is
+    # Euler, the SDXL refiner's sigma-space solver (tests/test_torch_sdxl_refiner.py).
+    # A method with energy guidance refuses Euler, as the JAX side's sampler
+    # asserts; a solver neither package defines is refused.
+    with pytest.raises(ValueError, match="VP-space"):
+        tmethods.get_method("backward_guidance").run(SPECS[0], bundles[1], scheduler="euler")
     with pytest.raises(NotImplementedError):
-        tmethods.get_method("sd").run(SPECS[0], bundles[1], scheduler="euler")
+        tmethods.get_method("sd").run(SPECS[0], bundles[1], scheduler="heun")
 
 
 @pytest.mark.parametrize("name,version", [("lmd-plus", "lmd_plus"), ("lmd_plus", "lmd_plus"),

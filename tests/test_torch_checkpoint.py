@@ -51,7 +51,8 @@ from tests.test_torch_slice import OVERRIDES, SPECS
 
 REPO = Path(__file__).resolve().parents[1]
 ERAS = ["modern", "legacy", "legacy_4d"]
-MANIFESTS = ["unet_gligen", "unet_sd15", "text_encoder_clip_vit_l", "vae_sd", "sam_vit_base"]
+MANIFESTS = ["unet_gligen", "unet_sd15", "text_encoder_clip_vit_l", "vae_sd", "sam_vit_base",
+             "unet_sdxl_refiner", "text_encoder_clip_bigg"]
 # The port's module names -> the manifests' legacy VAE attention names.
 LEGACY = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
 
@@ -485,6 +486,11 @@ def _to_legacy(key):
     return key
 
 
+UNET_VALUES = {"gligen/diffusers-generation-text-box": 1_068_623_204,
+               "runwayml/stable-diffusion-v1-5": 859_520_964,
+               "stabilityai/stable-diffusion-xl-refiner-1.0": 2_259_526_660}
+
+
 @pytest.mark.parametrize("model_key", sorted(convert._COMPONENT_MANIFESTS))
 def test_full_size_modules_match_the_manifests(model_key):
     cfg = tconfig.SD_CONFIGS[model_key]()
@@ -499,13 +505,13 @@ def test_full_size_modules_match_the_manifests(model_key):
     vae = {k: list(v.shape) for k, v in parts["vae"].state_dict().items()}
     manifests = convert._COMPONENT_MANIFESTS[model_key]
     assert unet == convert.load_manifest(manifests["unet"])
-    assert text == convert.load_manifest(manifests["text_encoder"])
+    assert text == convert.load_manifest(manifests[cfg.text_encoder_dir])
     want_vae = convert.load_manifest(manifests["vae"])
     renamed = {k for k in vae if _to_legacy(k) != k}
     assert len(renamed) == 16
     assert {_to_legacy(k): s for k, s in vae.items()} == want_vae
     n = sum(int(np.prod(s)) for s in unet.values())
-    assert n == (1_068_623_204 if cfg.unet.use_gligen else 859_520_964)
+    assert n == UNET_VALUES[model_key]
 
 
 def test_full_size_sam_matches_its_manifest_but_the_unused_keys():
@@ -550,7 +556,7 @@ def test_fabricator_writes_the_manifests_with_stable_bytes(tmp_path):
     _fabricate_in_subprocess(manifests, str(a), 1)
     _fabricate_in_subprocess(manifests, str(b), 2)
     files = _files(a)
-    assert files == _files(b) and len(files) == 7
+    assert files == _files(b) and len(files) == 10
     for f in files:
         assert (a / f).read_bytes() == (b / f).read_bytes(), f
 

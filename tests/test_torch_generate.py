@@ -235,7 +235,9 @@ def test_main_makes_the_same_calls(argv, cache_path, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--mesh", "auto"], "item 10"),
-    (["--sdxl"], "item 6"),
+    # --sdxl is ported (tests/test_torch_sdxl_refiner.py); an SDXL key as the
+    # stage-2 model stays refused.
+    (["--sd-model", "stabilityai/stable-diffusion-xl-refiner-1.0"], "item 6"),
     (["--use-sdv2", "--run-model", "sd"], "item 6"),
     (["--sd-model", "stabilityai/stable-diffusion-2-1-base"], "item 6"),
 ])

@@ -95,6 +95,21 @@ def test_forward_matches_plain(cuda, bh, lq, lk, d):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
+# The SDXL refiner's self-attention at head dim 64: CFG batch 2 x 12 heads at
+# 4096 tokens, x 24 heads at 1024 and at 256 tokens (no UNet of SD1.x has d 64).
+REFINER_SHAPES = [(24, 4096, 4096, 64), (48, 1024, 1024, 64), (48, 256, 256, 64)]
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", REFINER_SHAPES)
+def test_forward_at_the_refiner_head_dim_matches_plain(cuda, bh, lq, lk, d):
+    q, k, v, _ = _inputs(bh, lq, lk, d, cuda, seed=2)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
 @pytest.mark.parametrize("bh,lq,lk,d", SHAPES)
 def test_backward_matches_plain(cuda, bh, lq, lk, d):
     q, k, v, do = _inputs(bh, lq, lk, d, cuda, seed=1)
@@ -134,7 +149,7 @@ def test_forward_takes_pointers_off_16_bytes(cuda, bh, lq, lk, d, which):
 
 
 @pytest.mark.parametrize("bh,lq,lk,d", [(8, 4096, 4126, 40), (16, 256, 286, 160),
-                                        (3, 100, 300, 20)])
+                                        (3, 100, 300, 20), (24, 4096, 4096, 64)])
 def test_forward_is_bit_equal_from_run_to_run(cuda, bh, lq, lk, d):
     """One owner per output element and a fixed order of sums: no atomics."""
     q, k, v, _ = _inputs(bh, lq, lk, d, cuda, seed=8)

@@ -1,10 +1,12 @@
-"""The port's DPM-Solver++(2M) schedule and steps, DDIM inversion's step and
-the forward process (`lmdx_torch.core.schedule`) against the JAX package's
+"""The port's DPM-Solver++(2M) schedule and steps, DDIM inversion's step,
+the forward process and the Euler solver (grid, sigmas, step, input scale,
+forward noise) (`lmdx_torch.core.schedule`) against the JAX package's
 `lmdx.core.schedule`.
 
 Grids and flags are integers and must be equal. Step values are held within
 1e-6 of the largest value (f32 arithmetic in another order); the guidance
-step sizes are scalars held within 1e-6 relative.
+step sizes are scalars held within 1e-6 relative. Euler's float grids and
+sigmas are held within 1e-6 of their largest value.
 """
 
 import jax.numpy as jnp
@@ -14,6 +16,8 @@ import torch
 
 from lmdx.core import schedule as jsched
 from lmdx_torch.core import schedule as tsched
+from lmdx_torch.sampling import guidance as tguidance
+from lmdx_torch.sampling import loop as tloop
 
 STEPS = [6, 20, 50]
 
@@ -45,8 +49,48 @@ def test_dpm_schedule_matches_jax(steps, fast_after):
 
 
 def test_euler_is_still_refused():
-    with pytest.raises(NotImplementedError):
-        tsched.make_schedule(20, solver="euler")
+    # Euler is ported (the cases below); energy guidance on it is refused, as
+    # the JAX side's sampler asserts: guidance is defined on the VP-space
+    # solvers only.
+    with pytest.raises(ValueError, match="VP-space"):
+        tloop.sample(None, tsched.make_schedule(8, solver="euler"), torch.zeros(1, 4, 4, 4),
+                     torch.zeros(2, 77, 8), spec=tguidance.GuidanceSpec(), guidance_data={},
+                     solver="euler")
+
+
+EULER_STEPS = [8, 50]
+
+
+@pytest.mark.parametrize("steps", EULER_STEPS)
+def test_euler_schedule_matches_jax(steps):
+    want = jsched.make_schedule(steps, solver="euler")
+    got = tsched.make_schedule(steps, solver="euler")
+    np.testing.assert_array_equal(tsched.euler_timestep_grid(steps),
+                                  jsched.euler_timestep_grid(steps))
+    for name in ("timesteps", "prev_timesteps", "sigmas", "alphas_cumprod"):
+        _close(getattr(got, name), getattr(want, name))
+    assert np.float32(got.final_alpha_cumprod) == np.float32(want.final_alpha_cumprod)
+    assert got.init_noise_sigma == pytest.approx(want.init_noise_sigma, rel=1e-6, abs=0)
+    assert got.sigmas.shape == (steps + 1,) and got.sigmas[-1] == 0.0
+    _close(tsched.euler_sigmas(got.alphas_cumprod, got.timesteps),
+           jsched.euler_sigmas(np.asarray(want.alphas_cumprod), np.asarray(want.timesteps)))
+
+
+@pytest.mark.parametrize("steps", EULER_STEPS)
+def test_euler_step_input_scale_and_add_noise_match_jax(steps):
+    js = jsched.make_schedule(steps, solver="euler")
+    ts = tsched.make_schedule(steps, solver="euler")
+    for i in range(steps):
+        sample, eps, x0 = _state(steps * 10 + i)
+        sigma, sigma_next = ts.sigmas[i], ts.sigmas[i + 1]
+        jsig, jnext = js.sigmas[i], js.sigmas[i + 1]
+        _close(tsched.euler_step(torch.from_numpy(eps), sigma, sigma_next,
+                                 torch.from_numpy(sample)),
+               jsched.euler_step(jnp.asarray(eps), jsig, jnext, jnp.asarray(sample)))
+        _close(tsched.euler_scale_model_input(torch.from_numpy(sample), sigma),
+               jsched.euler_scale_model_input(jnp.asarray(sample), jsig))
+        _close(tsched.euler_add_noise(torch.from_numpy(x0), torch.from_numpy(eps), sigma),
+               jsched.euler_add_noise(jnp.asarray(x0), jnp.asarray(eps), jsig))
 
 
 @pytest.mark.parametrize("steps", [0, 1, 6, 14, 15, 50])

@@ -6,10 +6,11 @@
                           [--cli-f32-steps N] [--cli-steps N] [--optin-f32-steps N]
                           [--profile PATH]
 
-Eleven phases; any failure exits nonzero before the final line is printed.
+Twelve phases; any failure exits nonzero before the final line is printed.
 Phases 3-7, 9 and 10 run on random weights (LMDX_CHECKPOINT_DIR is unset for
 them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
-10 a fabricated OWL-ViT, phase 11 a fabricated SDXL refiner.
+10 a fabricated OWL-ViT, phase 11 a fabricated SDXL refiner, phase 12 a
+fabricated SD2.1 base, SDXL base and SAM.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    seven), one nvcc per source, all started together, into build/kernels/,
@@ -32,8 +33,12 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    fuser), 2 (overall guidance; KV = L and L + 30) and 1 (single-image
    guidance; KV = L and L + 30); and the forward at the SDXL refiner's
    head dim 64 (phase 11, REFINER_FWD_CASES: CFG batch 2 at 12 heads x 4096
-   tokens, 24 x 1024 and 24 x 256, KV = L), printed apart and in the totals.
-   SAM attention: one 4-image chunk and one
+   tokens, 24 x 1024 and 24 x 256, KV = L), the SDXL base's (phase 12 (d),
+   SDXL_BASE_FWD_CASES: CFG batch 2 at 10 heads x 4096 and 20 x 1024) and
+   SD2.1's (phase 12 (b), SD21_LEVELS: 5 heads x 4096 tokens, 10 x 1024, 20
+   x 256, all at head dim 64; the forward at batch 6, 3, 2 and 1, the
+   backward at LMD's guidance batches 3 and 1, KV = L), each group's sums
+   printed apart and in the totals. SAM attention: one 4-image chunk and one
    2-image chunk of SAM ViT-B, the global layers (B*H = 48 and 24, N =
    64 x 64, d = 64) and the windowed ones (B*H = 1200 and 600, N = 14 x 14),
    with random f32 bias. Tolerance:
@@ -48,7 +53,8 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    materialized outside the timed call as its mask), a yardstick only.
    The float32 forms of kernels 1, 2 and 5 (`csrc/attention_f32.cu`) at
    every shape phase 9 gives them (F32_FWD_CASES, F32_BWD_CASES,
-   F32_SAM_CASES), within 1e-4 * max|plain| for O and each gradient and
+   F32_SAM_CASES) and at SD2.1's head-dim-64 shapes of phase 12 (c) (the
+   same batches as bf16), within 1e-4 * max|plain| for O and each gradient and
    1e-4 for the LSE (the plain versions in full float32: TF32 is off; every
    float32 kernel's products in 3xTF32 on the tensor cores, kernels 1-f32,
    3-f32, 4-f32 and 5-f32 on one forward body of `csrc/attention_f32_tc.cuh`,
@@ -207,6 +213,32 @@ them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
    nothing else; the d-64 shapes are exactly phase 2's refiner shapes and
    every wrapper shape one phase 2 checked. Prints the refine wall per image
    apart from the LMD+ wall and the refiner's load, and the peak memory.
+12. SD2.1 base (`--use-sdv2`) and the SDXL base as the refiner, through
+   `lmdx_torch.cli.generate.main` on the first two demo layouts (3 boxes and
+   1) with a fabricated SAM ViT-B, `--cli-steps` DDIM steps, LMDX_CHECKPOINT_DIR,
+   LMDX_ALLOW_WORD_TOKENIZER and LMDX_REFINER_MODEL set for this phase only.
+   (a) stabilityai/stable-diffusion-2-1-base fabricated in fp16 (1.29B
+   values, ~2.6 GB: the 866M-parameter UNet, OpenCLIP ViT-H, the VAE),
+   validated, loaded in bf16 and held bit for bit (load wall, GB/s of file,
+   peak memory). (c) `--use-sdv2 --run-model lmd --use_autocast 0` on it:
+   `_drive`'s checks (images, exact launches of kernels 1-f32 and 2-f32 as
+   the schedule and the guidance iterations imply, no bf16 flash launch,
+   SAM's), each img_0.png the method's image, every flash shape at head dim
+   64 with its level's heads (5, 10, 20) and the forward's exactly phase 2's
+   SD2.1 set, TF32 off; then the tree is deleted. (d)
+   stabilityai/stable-diffusion-xl-base-1.0 fabricated in fp16 (3.47B
+   values, ~6.9 GB: the 2.57B-parameter UNet, CLIP ViT-L in text_encoder/
+   and bigG in text_encoder_2/), validated, loaded and held bit for bit. (b)
+   and (d) in one run: `--use-sdv2 --run-model lmd --sdxl` in bf16 with
+   LMDX_REFINER_MODEL naming the SDXL base (SD2.1 on random weights; the
+   checkpoint root then holds only the SDXL base): (c)'s checks on kernels 1
+   and 2, and each image upscaled to 1024x1024 and refined by img2img at
+   strength 0.3 (15 DDIM steps of 50, CFG 5, the base's 6 time ids, the
+   2048-wide concat of both towers' states). Each refinement must launch
+   kernel 1 exactly 15 x 70 = 1050 times (the 4 + 20 + 30 + 6 + 10
+   self-attentions of a UNet call, B*H 20 at 4096 tokens and 40 at 1024)
+   and nothing else, at exactly phase 2's SDXL base shapes; each img_0.png
+   is 1024x1024x3 uint8 and not the LANCZOS upscale.
 
 Matmuls and convolutions run in bf16 (phase 9 (a) and phase 10: float32); TF32 is turned
 off for both (torch.backends.cuda.matmul.allow_tf32 and
@@ -365,12 +397,25 @@ def _bound(total: dict, flops: float, nbytes: float,
 # fuser (a group of 3 boxes: 3 x CFG).
 FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)] + [(6, 0), (6, 30)]
 BWD_CASES = [(2, 0), (2, 30), (4, 0), (1, 0), (1, 30)]
-FLASH_LEVELS = ((4096, 40), (1024, 80), (256, 160))   # (tokens, head_dim) at 8 heads
+# (heads, tokens, head_dim) of SD1.x's attention levels at 512x512.
+FLASH_LEVELS = ((8, 4096, 40), (8, 1024, 80), (8, 256, 160))
+# SD2.1 base's levels at 512x512 (phase 12): head dim 64 at 5, 10 and 20 heads.
+SD21_LEVELS = ((5, 4096, 64), (10, 1024, 64), (20, 256, 64))
+# (batch, Lk - L) of phase 12's LMD on SD2.1 (bf16 and float32 alike): the
+# single-image LMD of a 3-box and a 1-box layout gives the forward its
+# per-box passes (batch 6 and 2), per-box guidance (3 and 1), overall pass
+# (2) and overall guidance (1), and the backward the guidance batches; no
+# fuser.
+SD21_FWD_CASES = [(6, 0), (3, 0), (2, 0), (1, 0)]
+SD21_BWD_CASES = [(3, 0), (1, 0)]
 # (batch, heads, tokens) of the SDXL refiner's self-attention at head dim 64
 # (phase 11): CFG batch 2; 12 heads at the 4096-token level, 24 at the
 # 1024-token level and the 256-token mid block. KV = L (no fuser).
 REFINER_FWD_CASES = ((2, 12, 4096), (2, 24, 1024), (2, 24, 256))
 REFINER_HEAD_DIM = 64
+# The SDXL base's self-attention as the --sdxl refiner (phase 12 (d)): CFG
+# batch 2; 10 heads at 4096 tokens, 20 at 1024 (the mid block's too). KV = L.
+SDXL_BASE_FWD_CASES = ((2, 10, 4096), (2, 20, 1024))
 # (B * heads, grid side) of SAM ViT-B's attention on a chunk of 4 images
 # (the batched LMD path), of 2 (one 2-box layout), of 3 and of 1 (phase 9's
 # demo layouts of 3 boxes and 1): global and windowed.
@@ -386,7 +431,10 @@ F32_BWD_CASES = [(3, 0), (1, 0), (1, 30)]
 F32_SAM_CASES = [(12, 64), (25 * 12, 14)]
 
 
-# (Lq, Lk, head_dim) of the backward calls only the opt-in path makes.
+# The opt-in path runs on SD1.x's UNets: 8 heads at every level.
+OPTIN_HEADS = 8
+# (Lq, Lk, head_dim) of the backward calls only the opt-in path makes, at
+# OPTIN_HEADS.
 BWD_SHORT_KV = [(4096, 77, 40), (1024, 77, 80), (256, 77, 160), (64, 77, 160),
                 (64, 64, 160), (64, 94, 160)]
 
@@ -528,32 +576,54 @@ def _check_fwd(fwd, b, heads, L, lk, d, reps):
     return ms, plain, bound, lib
 
 
+def _log_sums(what: str, before: dict, after: dict) -> None:
+    """The times a group of shapes added to a kernel's totals."""
+    d = {k: after[k] - before[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"  {what}: {d['ms']:.4f} ms (plain {d['plain_ms']:.3f}, bound {d['bound_ms']:.4f}, "
+        f"library {d['library_ms']:.4f})")
+
+
 def phase_kernels():
-    heads = 8
     fwd, bwd = _totals(), _totals()
-    for L, d in FLASH_LEVELS:
+    for heads, L, d in FLASH_LEVELS:
         reps = 5 if L == 4096 else 20
         for b, extra in FWD_CASES:
             _check_fwd(fwd, b, heads, L, L + extra, d, reps)
         for b, extra in BWD_CASES:
             _check_bwd(bwd, b, heads, L, L + extra, d, reps)
-    # The SDXL refiner's self-attention (phase 11) at head dim 64, which no
-    # SD1.x UNet has; its sums are printed apart and count in the totals.
-    sums = [0.0] * 4
+    # Head dim 64, which no SD1.x UNet has: the SDXL refiner's self-attention
+    # (phase 11), the SDXL base's (phase 12 (d)) and SD2.1's LMD (phase 12
+    # (b)); each group's sums are printed apart and count in the totals.
+    before = dict(fwd)
     for b, h, L in REFINER_FWD_CASES:
-        times = _check_fwd(fwd, b, h, L, L, REFINER_HEAD_DIM, 10 if L == 4096 else 20)
-        sums = [a + (t or 0.0) for a, t in zip(sums, times)]
-    log(f"  fwd at d {REFINER_HEAD_DIM} (the refiner's {len(REFINER_FWD_CASES)} shapes): "
-        f"{sums[0]:.4f} ms (plain {sums[1]:.3f}, bound {sums[2]:.4f}, library {sums[3]:.4f})")
+        _check_fwd(fwd, b, h, L, L, REFINER_HEAD_DIM, 10 if L == 4096 else 20)
+    _log_sums(f"fwd at d {REFINER_HEAD_DIM} (the refiner's {len(REFINER_FWD_CASES)} shapes)",
+              before, fwd)
+    before = dict(fwd)
+    for b, h, L in SDXL_BASE_FWD_CASES:
+        _check_fwd(fwd, b, h, L, L, REFINER_HEAD_DIM, 10 if L == 4096 else 20)
+    _log_sums(f"fwd at d {REFINER_HEAD_DIM} (the SDXL base's {len(SDXL_BASE_FWD_CASES)} "
+              f"shapes)", before, fwd)
+    before_f, before_b = dict(fwd), dict(bwd)
+    for heads, L, d in SD21_LEVELS:
+        reps = 5 if L == 4096 else 20
+        for b, extra in SD21_FWD_CASES:
+            _check_fwd(fwd, b, heads, L, L + extra, d, reps)
+        for b, extra in SD21_BWD_CASES:
+            _check_bwd(bwd, b, heads, L, L + extra, d, reps)
+    n = len(SD21_LEVELS)
+    _log_sums(f"fwd at d 64 (SD2.1's {n * len(SD21_FWD_CASES)} shapes)", before_f, fwd)
+    _log_sums(f"bwd at d 64 (SD2.1's {n * len(SD21_BWD_CASES)} shapes)", before_b, bwd)
     default_ms = bwd["ms"]
     # The fused-heads gradient (phase 5) splits heads and calls the backward at
     # the KV lengths the default dispatch keeps on plain math: the 77-token
     # cross-attention of every level and the 64-token mid block (KV 64, and 94
     # with the fuser), at the guidance batch.
     for L, lk, d in BWD_SHORT_KV:
-        _check_bwd(bwd, 2, heads, L, lk, d, 20)
-    log(f"  bwd: {default_ms:.3f} ms over the {3 * len(BWD_CASES)} shapes of the default "
-        f"paths, {bwd['ms'] - default_ms:.3f} ms over the {len(BWD_SHORT_KV)} short-KV "
+        _check_bwd(bwd, 2, OPTIN_HEADS, L, lk, d, 20)
+    log(f"  bwd: {default_ms:.3f} ms over the {3 * len(BWD_CASES)} + "
+        f"{len(SD21_LEVELS) * len(SD21_BWD_CASES)} shapes of the default paths, "
+        f"{bwd['ms'] - default_ms:.3f} ms over the {len(BWD_SHORT_KV)} short-KV "
         f"shapes of the opt-in path")
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
 
@@ -653,18 +723,29 @@ def phase_f32_kernels():
     from lmdx_torch.nn.kernels import flash_attention as fa
     from lmdx_torch.nn.kernels import sam_attention as sa
 
-    heads, f32 = 8, torch.float32
+    f32 = torch.float32
     fwd, bwd, sam = _totals(), _totals(), _totals()
     log(f"  float32 kernels: bound = operations at 3xTF32's rate "
         f"({PEAK_TF32X3_FLOPS / 1e12:.0f} TFLOP/s; the float32 FMA peak is "
         f"{PEAK_F32_FLOPS / 1e12:.0f}) or bytes at {PEAK_BYTES / 1e12:.2f} TB/s, "
         f"the larger; tolerance {TOL_F32} * max|plain|, LSE {TOL_LSE_F32}")
-    for L, d in FLASH_LEVELS:
+    for heads, L, d in FLASH_LEVELS:
         reps = 3 if L == 4096 else 20
         for b, extra in F32_FWD_CASES:
             _f32_fwd_case(fwd, b, heads, L, L + extra, d, reps)
         for b, extra in F32_BWD_CASES:
             _check_bwd(bwd, b, heads, L, L + extra, d, reps, dtype=f32)
+    # SD2.1's float32 LMD (phase 12 (c)) at head dim 64.
+    before_f, before_b = dict(fwd), dict(bwd)
+    for heads, L, d in SD21_LEVELS:
+        reps = 3 if L == 4096 else 20
+        for b, extra in SD21_FWD_CASES:
+            _f32_fwd_case(fwd, b, heads, L, L + extra, d, reps)
+        for b, extra in SD21_BWD_CASES:
+            _check_bwd(bwd, b, heads, L, L + extra, d, reps, dtype=f32)
+    n = len(SD21_LEVELS)
+    _log_sums(f"fwd f32 at d 64 (SD2.1's {n * len(SD21_FWD_CASES)} shapes)", before_f, fwd)
+    _log_sums(f"bwd f32 at d 64 (SD2.1's {n * len(SD21_BWD_CASES)} shapes)", before_b, bwd)
 
     d = 64
     for bh, g in F32_SAM_CASES:
@@ -761,7 +842,7 @@ def phase_optin_kernels():
     from lmdx_torch.nn.kernels import flash_attention as fa
     from lmdx_torch.nn.kernels import group_norm as gn
 
-    heads = 8
+    heads = OPTIN_HEADS
     packed, fused, stats = _totals(), _totals(), _totals()
     sdpa = torch.ops.aten._scaled_dot_product_flash_attention
 
@@ -869,7 +950,7 @@ def phase_optin_kernels():
 # head split at both kernels' shapes.
 F32_PACKED_LEVELS = ((4096, 40), (1024, 80))
 F32_FUSED_CASES = [c for c in FUSED_CASES if c[0] != 1024 or c[1] == 77]
-F32_OPTIN_BWD = [(L, L + e, d) for L, d in FLASH_LEVELS for e in (0, 30)] + BWD_SHORT_KV
+F32_OPTIN_BWD = [(L, L + e, d) for _, L, d in FLASH_LEVELS for e in (0, 30)] + BWD_SHORT_KV
 # The tensor-core kernels' tiles no path shape reaches, (batch, Lq, Lk,
 # heads * d) and (batch, Lq, Lk, d): the 64-row q tile at head dim 160; the
 # wide dK/dV walk at KV 77 (batch 17: 3 x 136 wide blocks) and the split one
@@ -935,7 +1016,7 @@ def phase_f32_optin_kernels(bwd, stats):
 
     from lmdx_torch.nn.kernels import flash_attention as fa
 
-    heads, f32 = 8, torch.float32
+    heads, f32 = OPTIN_HEADS, torch.float32
     packed, fused = _totals(), _totals()
     for L, d in F32_PACKED_LEVELS:
         reps = 3 if L == 4096 else 20
@@ -1455,15 +1536,18 @@ def _recording_optin_shapes():
                  fa.flash_attention_bwd, gn.pair_stats)
 
     def packed(q, k, v):
-        seen["packed"].add((q.shape[0], q.shape[2], k.shape[2] - q.shape[2], _dtype_name(q)))
+        seen["packed"].add((q.shape[0], q.shape[1], q.shape[2], k.shape[2] - q.shape[2],
+                            _dtype_name(q)))
         return originals[0](q, k, v)
 
     def fused(qf, kf, vf, heads):
-        seen["fused"].add((qf.shape[0], qf.shape[1], kf.shape[1], qf.shape[2], _dtype_name(qf)))
+        seen["fused"].add((qf.shape[0], heads, qf.shape[1], kf.shape[1], qf.shape[2],
+                           _dtype_name(qf)))
         return originals[1](qf, kf, vf, heads)
 
     def bwd(q, k, v, *rest):
-        seen["bwd"].add((q.shape[0], q.shape[2], k.shape[2], q.shape[3], _dtype_name(q)))
+        seen["bwd"].add((q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                         _dtype_name(q)))
         return originals[2](q, k, v, *rest)
 
     def stats(a, b):
@@ -1481,18 +1565,19 @@ def _recording_optin_shapes():
 
 def _optin_checked(dtype_name: str) -> dict:
     """Every (batch, shape..., dtype) phase 2 holds the opt-in path's
-    wrappers to at `dtype_name`, as `_recording_optin_shapes` records them."""
-    b_all = OPTIN_BATCHES
+    wrappers to at `dtype_name`, as `_recording_optin_shapes` records them:
+    (batch, heads, shape..., dtype)."""
+    b_all, h = OPTIN_BATCHES, OPTIN_HEADS
     if dtype_name == "float32":
-        packed = {(b, L, e) for L, _ in F32_PACKED_LEVELS for e in (0, 30) for b in b_all}
-        fused = {(b, *c) for c in F32_FUSED_CASES for b in b_all}
-        bwd = ({(2, *c) for c in F32_OPTIN_BWD}
-               | {(b, L, L + e, d) for L, d in FLASH_LEVELS for b, e in F32_BWD_CASES})
+        packed = {(b, h, L, e) for L, _ in F32_PACKED_LEVELS for e in (0, 30) for b in b_all}
+        fused = {(b, h, *c) for c in F32_FUSED_CASES for b in b_all}
+        bwd = ({(2, h, *c) for c in F32_OPTIN_BWD}
+               | {(b, lh, L, L + e, d) for lh, L, d in FLASH_LEVELS for b, e in F32_BWD_CASES})
     else:
-        packed = {(b, L, e) for L, e in PACKED_CASES for b in b_all}
-        fused = {(b, *c) for c in FUSED_CASES for b in b_all}
-        bwd = ({(2, *c) for c in BWD_SHORT_KV}
-               | {(b, L, L + e, d) for L, d in FLASH_LEVELS for b, e in BWD_CASES})
+        packed = {(b, h, L, e) for L, e in PACKED_CASES for b in b_all}
+        fused = {(b, h, *c) for c in FUSED_CASES for b in b_all}
+        bwd = ({(2, h, *c) for c in BWD_SHORT_KV}
+               | {(b, lh, L, L + e, d) for lh, L, d in FLASH_LEVELS for b, e in BWD_CASES})
     tag = (dtype_name,)
     return {"packed": {s + tag for s in packed}, "fused": {s + tag for s in fused},
             "bwd": {s + tag for s in bwd},
@@ -1634,15 +1719,23 @@ def _dtype_name(t) -> str:
 def _phase2_shapes():
     """Every shape phase 2 holds the flash forward, the default paths'
     backward and SAM attention to, in bf16 and in float32, as
-    `_recording_shapes` records them."""
-    heads = 8
+    `_recording_shapes` records them: SD1.x's levels at 8 heads, SD2.1's
+    at 5, 10 and 20, the SDXL refiner's and the SDXL base's self-attention."""
 
-    def flash(cases, dtype):
-        return {(b, heads, L, L + e, d, dtype) for L, d in FLASH_LEVELS for b, e in cases}
+    def flash(levels, cases, dtype):
+        return {(b, h, L, L + e, d, dtype) for h, L, d in levels for b, e in cases}
 
-    refiner = {(b, h, L, L, REFINER_HEAD_DIM, "bfloat16") for b, h, L in REFINER_FWD_CASES}
-    return {"fwd": flash(FWD_CASES, "bfloat16") | flash(F32_FWD_CASES, "float32") | refiner,
-            "bwd": flash(BWD_CASES, "bfloat16") | flash(F32_BWD_CASES, "float32"),
+    sdxl = {(b, h, L, L, REFINER_HEAD_DIM, "bfloat16")
+            for b, h, L in REFINER_FWD_CASES + SDXL_BASE_FWD_CASES}
+    sd21 = {dtype: (flash(SD21_LEVELS, SD21_FWD_CASES, dtype),
+                    flash(SD21_LEVELS, SD21_BWD_CASES, dtype))
+            for dtype in ("bfloat16", "float32")}
+    return {"fwd": (flash(FLASH_LEVELS, FWD_CASES, "bfloat16")
+                    | flash(FLASH_LEVELS, F32_FWD_CASES, "float32") | sdxl
+                    | sd21["bfloat16"][0] | sd21["float32"][0]),
+            "bwd": (flash(FLASH_LEVELS, BWD_CASES, "bfloat16")
+                    | flash(FLASH_LEVELS, F32_BWD_CASES, "float32")
+                    | sd21["bfloat16"][1] | sd21["float32"][1]),
             "sam": ({(bh, g * g, "bfloat16") for bh, g in SAM_CASES}
                     | {(bh, g * g, "float32") for bh, g in F32_SAM_CASES})}
 
@@ -2369,6 +2462,112 @@ def _refiner_launches_per_call(cfg) -> int:
     return down + up + u.transformer_depth(levels - 1)
 
 
+def _load_fabricated(label: str, key: str, root: str) -> str:
+    """Fabricates `key` in fp16 under `root` at the published keys and
+    shapes, validates it, loads it by `load_bundle` in bf16 on the card and
+    holds every parameter bit for bit against the files; returns the
+    checkpoint directory."""
+    import torch
+
+    from lmdx_torch.runtime import convert, fabricate, models
+
+    t0 = time.perf_counter()
+    n_params = fabricate.fabricate_model(key, root, torch.float16)
+    ckpt = os.path.join(root, key.replace("/", "--"))
+    size = _dir_bytes(ckpt)
+    log(f"{label}: fabricated {key}: {n_params / 1e9:.3f}B params in fp16 "
+        f"({size / 1e9:.3f} GB: {sorted(os.listdir(ckpt))}) in {time.perf_counter() - t0:.1f} s")
+    report = convert.validate_checkpoint(key, ckpt)
+    if any(v for r in report.values() for v in r.values()):
+        fail(f"{label}: {key} does not match its manifests: {report}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = models.load_bundle(key, ckpt, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"{label}: {key} loaded from {size / 1e9:.3f} GB in {wall:.2f} s "
+        f"({size / 1e9 / wall:.2f} GB/s of file), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    modules = {"unet": bundle.unet, "text": bundle.text_encoder, "vae": bundle.vae}
+    if bundle.text_encoder_2 is not None:
+        modules["text2"] = bundle.text_encoder_2
+    n = _check_loaded(label, modules, convert.load_checkpoint(bundle.config, ckpt),
+                      models.F32_PARAM_NAME_MARKERS)
+    log(f"{label}: {n / 1e9:.3f}B loaded values ({', '.join(modules)}) equal the files' "
+        f"tensors bit for bit")
+    del bundle, modules
+    torch.cuda.empty_cache()
+    return ckpt
+
+
+def _counting_refine(orig_refine, refined: list):
+    """A stand-in for `sdxl_refine.refine` that appends, for each call, its
+    wall (s), its launches by kernel and the shapes it gave the flash and
+    SAM wrappers to `refined`."""
+    import torch
+
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
+    from lmdx_torch.nn.kernels import sam_attention as sa
+
+    def refine(image, spec, **kw):
+        before = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _recording_shapes() as shapes:
+            out = orig_refine(image, spec, **kw)  # host numpy: synchronous
+        wall = time.perf_counter() - t
+        after = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+        refined.append((wall, {k: after[k] - before[k] for k in after}, shapes))
+        return out
+
+    return refine
+
+
+def _check_refined(label, run_dir, small_images, refined, cfg, fwd_cases) -> int:
+    """Each prompt directory's img_0.png is the refiner's (H, W, 3) uint8
+    image, not constant and not the LANCZOS upscale of the stage-2 image;
+    each refinement launched kernel 1 exactly REFINER_STEPS x the flash
+    layers of the refiner's UNet call times, at exactly `fwd_cases` (batch,
+    heads, tokens; head dim 64, KV = L), and nothing else. Returns the
+    launches per refinement."""
+    import numpy as np
+    from PIL import Image
+
+    if len(refined) != len(small_images):
+        fail(f"{label}: {len(small_images)} stage-2 images, {len(refined)} refined")
+    size = (cfg.height, cfg.width)
+    for ind, small in enumerate(small_images):
+        img = _read_png(os.path.join(run_dir, str(ind), "img_0.png"))
+        if img.dtype.name != "uint8" or img.shape != (*size, 3) or img.std() == 0:
+            fail(f"{label}: {run_dir}/{ind}/img_0.png is {img.dtype} {img.shape}, "
+                 f"std {img.std()}")
+        up = np.asarray(Image.fromarray(small).resize((cfg.width, cfg.height), Image.LANCZOS))
+        diff = np.abs(img.astype(np.int16) - up.astype(np.int16))
+        if diff.max() == 0:
+            fail(f"{label}: image {ind} is the LANCZOS upscale, not refined")
+        log(f"{label}: image {ind}: {img.shape} uint8, std {img.std():.1f}; against the "
+            f"LANCZOS upscale of the {small.shape[0]}x{small.shape[1]} image: mean |diff| "
+            f"{diff.mean():.1f}, max {diff.max()}")
+    per_call = _refiner_launches_per_call(cfg)
+    want = REFINER_STEPS * per_call
+    shapes = {(b, h, L, L, REFINER_HEAD_DIM, "bfloat16") for b, h, L in fwd_cases}
+    for i, (t, launches, seen) in enumerate(refined):
+        others = {k: v for k, v in launches.items() if k != "flash_attention_fwd" and v}
+        if launches["flash_attention_fwd"] != want or others:
+            fail(f"{label}: refine {i} launched {launches} (want flash_attention_fwd {want} "
+                 f"= {REFINER_STEPS} steps x {per_call}, nothing else)")
+        if seen["fwd"] != shapes or seen["bwd"] or seen["sam"]:
+            fail(f"{label}: refine {i} gave the wrappers {seen}; phase 2 checks "
+                 f"{sorted(shapes)}")
+        log(f"{label}: refine {i}: {t:.3f} s at {size[0]}x{size[1]}, kernel 1 {want} = "
+            f"{REFINER_STEPS} steps x {per_call} launches at d {REFINER_HEAD_DIM}, shapes "
+            f"{sorted(seen['fwd'])}")
+    return want
+
+
 def phase_sdxl(plus_steps: int):
     """Phase 11: the SDXL refiner. (a) Its fp16 checkpoint fabricated at the
     published keys and shapes, validated, loaded by `load_bundle` and held bit
@@ -2376,9 +2575,7 @@ def phase_sdxl(plus_steps: int):
     checkpoint (LMDX_CHECKPOINT_DIR and LMDX_ALLOW_WORD_TOKENIZER set for this
     phase only): LMD+ on two demo layouts at `plus_steps` DDIM steps, each
     image refined at 1024x1024 by 15 Euler steps, CFG 5."""
-    import numpy as np
     import torch
-    from PIL import Image
 
     from lmdx_torch.config import SD_CONFIGS
     from lmdx_torch.eval.prompts import PROMPTS_DEMO
@@ -2386,7 +2583,6 @@ def phase_sdxl(plus_steps: int):
     from lmdx_torch.nn.kernels import flash_attention as fa
     from lmdx_torch.nn.kernels import group_norm as gn
     from lmdx_torch.nn.kernels import sam_attention as sa
-    from lmdx_torch.runtime import convert, fabricate, models
     from lmdx_torch.text.cache import LayoutCache
 
     t_phase = time.perf_counter()
@@ -2396,33 +2592,8 @@ def phase_sdxl(plus_steps: int):
     try:
         with tempfile.TemporaryDirectory(prefix="lmdx_sdxl_") as root:
             # (a) the checkpoint.
-            t0 = time.perf_counter()
-            n_params = fabricate.fabricate_model(SDXL_REFINER, root, torch.float16)
-            ckpt = os.path.join(root, SDXL_REFINER.replace("/", "--"))
-            size = _dir_bytes(ckpt)
-            log(f"sdxl: fabricated {n_params / 1e9:.3f}B params in fp16 ({size / 1e9:.3f} GB: "
-                f"{sorted(os.listdir(ckpt))}) in {time.perf_counter() - t0:.1f} s")
-            report = convert.validate_checkpoint(SDXL_REFINER, ckpt)
-            if any(v for r in report.values() for v in r.values()):
-                fail(f"sdxl: the checkpoint does not match its manifests: {report}")
             os.environ["LMDX_ALLOW_WORD_TOKENIZER"] = "1"
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            bundle = models.load_bundle(SDXL_REFINER, ckpt, device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            log(f"sdxl: refiner loaded from {size / 1e9:.3f} GB in {wall:.2f} s "
-                f"({size / 1e9 / wall:.2f} GB/s of file), peak "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-            n = _check_loaded("sdxl", {"unet": bundle.unet, "text": bundle.text_encoder,
-                                       "vae": bundle.vae},
-                              convert.load_checkpoint(bundle.config, ckpt),
-                              models.F32_PARAM_NAME_MARKERS)
-            log(f"sdxl: {n / 1e9:.3f}B loaded values equal the files' tensors bit for bit")
-            del bundle
-            torch.cuda.empty_cache()
+            _load_fabricated("sdxl", SDXL_REFINER, root)
 
             # (b) the CLI with --sdxl on two demo layouts.
             cache_path = os.path.join(root, "cache_demo_v0.1_gpt-4.json")
@@ -2430,7 +2601,6 @@ def phase_sdxl(plus_steps: int):
             for prompt, response in zip(PROMPTS_DEMO, DEMO_RESPONSES):
                 cache.add(prompt.strip().rstrip("."), response)
             os.environ["LMDX_CHECKPOINT_DIR"] = root
-            per_call = _refiner_launches_per_call(cfg)
             plus_images, refined, loads = [], [], []
             orig_run, orig_refine = lmd_plus.run, sdxl_refine.refine
             orig_load = sdxl_refine.load_refiner_bundle
@@ -2448,21 +2618,12 @@ def phase_sdxl(plus_steps: int):
                 loads.append(time.perf_counter() - t)
                 return out
 
-            def refine_timed(image, spec, **kw):
-                before = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = orig_refine(image, spec, **kw)  # host numpy: synchronous
-                wall = time.perf_counter() - t
-                after = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
-                refined.append((wall, {k: after[k] - before[k] for k in after}))
-                return out
-
             save_dir = os.path.join(root, "out")
             argv = ["--prompt-type", "demo", "--run-model", "lmd_plus", "--sdxl",
                     "--num_prompts", "2", "--cache-path", cache_path, "--save-dir", save_dir,
                     "--num_inference_steps", str(plus_steps), "--no-continue-on-error"]
-            lmd_plus.run, sdxl_refine.refine = run_and_keep, refine_timed
+            lmd_plus.run = run_and_keep
+            sdxl_refine.refine = _counting_refine(orig_refine, refined)
             sdxl_refine.load_refiner_bundle = load_timed
             try:
                 with _recording_shapes() as seen:
@@ -2483,44 +2644,16 @@ def phase_sdxl(plus_steps: int):
             peak = torch.cuda.max_memory_allocated() / 2**30
 
             run_dir = os.path.join(save_dir, "templatev0.1_lmd_plus_demo", "run0")
-            if len(plus_images) != 2 or len(refined) != 2:
-                fail(f"sdxl: {len(plus_images)} LMD+ images, {len(refined)} refined (want 2, 2)")
-            for ind, small in enumerate(plus_images):
-                img = _read_png(os.path.join(run_dir, str(ind), "img_0.png"))
-                if (img.dtype.name != "uint8" or img.shape != (cfg.height, cfg.width, 3)
-                        or img.std() == 0):
-                    fail(f"sdxl: {run_dir}/{ind}/img_0.png is {img.dtype} {img.shape}, "
-                         f"std {img.std()}")
-                up = np.asarray(Image.fromarray(small).resize((cfg.width, cfg.height),
-                                                              Image.LANCZOS))
-                diff = np.abs(img.astype(np.int16) - up.astype(np.int16))
-                if diff.max() == 0:
-                    fail(f"sdxl: image {ind} is the LANCZOS upscale, not refined")
-                log(f"sdxl: image {ind}: {img.shape} uint8, std {img.std():.1f}; against the "
-                    f"LANCZOS upscale of the {small.shape[0]}x{small.shape[1]} image: mean "
-                    f"|diff| {diff.mean():.1f}, max {diff.max()}")
-            want = REFINER_STEPS * per_call
-            for i, (t, ref_launches) in enumerate(refined):
-                others = {k: v for k, v in ref_launches.items()
-                          if k != "flash_attention_fwd" and v}
-                if ref_launches["flash_attention_fwd"] != want or others:
-                    fail(f"sdxl: refine {i} launched {ref_launches} (want "
-                         f"flash_attention_fwd {want} = {REFINER_STEPS} steps x {per_call}, "
-                         f"nothing else)")
-            d64 = {s for s in seen["fwd"] if s[4] == REFINER_HEAD_DIM}
-            refiner_shapes = {(b, h, L, L, REFINER_HEAD_DIM, "bfloat16")
-                              for b, h, L in REFINER_FWD_CASES}
-            if d64 != refiner_shapes:
-                fail(f"sdxl: kernel 1 at d {REFINER_HEAD_DIM} was given {sorted(d64)}, "
-                     f"phase 2 checks {sorted(refiner_shapes)}")
-            walls = [t for t, _ in refined]
+            if len(plus_images) != 2:
+                fail(f"sdxl: {len(plus_images)} LMD+ images (want 2)")
+            want = _check_refined("sdxl", run_dir, plus_images, refined, cfg, REFINER_FWD_CASES)
+            walls = [t for t, _, _ in refined]
             log(f"sdxl: CLI --sdxl, 2 LMD+ images at {plus_steps} DDIM steps, each refined at "
                 f"{cfg.height}x{cfg.width} by {REFINER_STEPS} Euler steps: wall {wall:.2f} s "
                 f"(refiner load {sum(loads):.2f} s, refine per image "
                 f"{', '.join(f'{t:.3f}' for t in walls)} s, LMD+ and the rest "
                 f"{wall - sum(loads) - sum(walls):.2f} s), peak memory {peak:.2f} GiB")
-            log(f"sdxl: launches of the phase {launches}; kernel 1 per refined image "
-                f"{want} ({REFINER_STEPS} x {per_call}) at d {REFINER_HEAD_DIM}")
+            log(f"sdxl: launches of the phase {launches}; kernel 1 per refined image {want}")
     finally:
         for k, v in saved.items():
             os.environ.pop(k, None)
@@ -2530,6 +2663,174 @@ def phase_sdxl(plus_steps: int):
     _require_checked_shapes("sdxl", seen, required=("fwd", "bwd"))
     log(f"sdxl: phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+SD21 = "stabilityai/stable-diffusion-2-1-base"
+SDXL_BASE = "stabilityai/stable-diffusion-xl-base-1.0"
+# Kernel-1 launches of one SDXL base UNet call at 1024x1024: the self-
+# attentions of 2 x 2 blocks (4096 tokens) and 2 x 10 (1024) going down, 3 x
+# 10 and 3 x 2 coming up, and the mid block's 10; its level without
+# attention and the 77-token cross-attentions launch nothing.
+SDXL_BASE_LAUNCHES_PER_CALL = 70
+
+
+def _require_sd21_shapes(label, seen, dtype_name, refiner_fwd=()):
+    """Every flash shape of an SD2.1 run is at head dim 64 with its level's
+    heads, in `dtype_name`: the forward's exactly phase 2's SD2.1 set (and
+    the refiner's `refiner_fwd` cases, bf16), the backward's within it; SAM
+    in bf16, as the CLI loads it."""
+    fwd = ({(b, h, L, L + e, d, dtype_name) for h, L, d in SD21_LEVELS for b, e in SD21_FWD_CASES}
+           | {(b, h, L, L, REFINER_HEAD_DIM, "bfloat16") for b, h, L in refiner_fwd})
+    bwd = {(b, h, L, L + e, d, dtype_name) for h, L, d in SD21_LEVELS for b, e in SD21_BWD_CASES}
+    if seen["fwd"] != fwd or not seen["bwd"] or not seen["bwd"] <= bwd:
+        fail(f"{label}: flash shapes fwd {sorted(seen['fwd'])} bwd {sorted(seen['bwd'])}; "
+             f"want fwd {sorted(fwd)} and bwd within {sorted(bwd)}")
+    if not seen["sam"] or any(s[-1] != "bfloat16" for s in seen["sam"]):
+        fail(f"{label}: SAM shapes {sorted(seen['sam'])}")
+    _require_checked_shapes(label, seen)
+
+
+def phase_sd21(steps: int):
+    """Phase 12: SD2.1 base behind `--use-sdv2` and the SDXL base as the
+    `--sdxl` refiner, through the stage-2 CLI in this process, with
+    LMDX_CHECKPOINT_DIR, LMDX_ALLOW_WORD_TOKENIZER and LMDX_REFINER_MODEL set
+    for this phase only, on two demo layouts (3 boxes and 1) with a
+    fabricated SAM ViT-B at `steps` DDIM steps. (a) SD2.1 fabricated,
+    loaded, held bit for bit; (c) `--use-sdv2 --run-model lmd
+    --use_autocast 0` on it; (d) the SDXL base fabricated, loaded, held bit
+    for bit; (b) and (d) in one run: `--use-sdv2 --run-model lmd --sdxl` in
+    bf16 with LMDX_REFINER_MODEL naming the SDXL base (SD2.1 on random
+    weights: the checkpoint root then holds only the SDXL base). Each
+    fabricated tree is deleted when its step ends."""
+    import torch
+
+    from lmdx_torch.config import SD_CONFIGS
+    from lmdx_torch.eval.prompts import PROMPTS_DEMO
+    from lmdx_torch.methods import _grounded, sdxl_refine
+    from lmdx_torch.methods import lmd as lmd_method
+    from lmdx_torch.nn.sam import SamSegmenter, sam_vit_base
+    from lmdx_torch.runtime import fabricate
+    from lmdx_torch.text import parser
+    from lmdx_torch.text.cache import LayoutCache
+
+    t_phase = time.perf_counter()
+    cfg, base_cfg = SD_CONFIGS[SD21](), SD_CONFIGS[SDXL_BASE]()
+    per_call = _refiner_launches_per_call(base_cfg)
+    if per_call != SDXL_BASE_LAUNCHES_PER_CALL:
+        fail(f"sd21: the SDXL base's UNet has {per_call} flash layers, expected "
+             f"{SDXL_BASE_LAUNCHES_PER_CALL}")
+    saved = {k: os.environ.pop(k, None)
+             for k in ("LMDX_CHECKPOINT_DIR", "LMDX_ALLOW_WORD_TOKENIZER", "LMDX_REFINER_MODEL")}
+    n_prompts = 2
+    all_launches = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="lmdx_sd21_") as work:
+            cache_path = os.path.join(work, "cache_demo_v0.1_gpt-4.json")
+            cache = LayoutCache(cache_path)
+            boxes = []
+            for prompt, response in zip(PROMPTS_DEMO, DEMO_RESPONSES):
+                cache.add(prompt.strip().rstrip("."), response)
+                boxes.append(len(parser.filter_boxes(
+                    parser.parse_layout_response(response).gen_boxes)))
+            fabricate.fabricate_sam(work, torch.float16)
+            sam_dir = os.path.join(work, fabricate.SAM_KEY.replace("/", "--"))
+            expected_sam = sum(sam_vit_base().encoder_layers * -(-n // SamSegmenter.CHUNK)
+                               for n in boxes[:n_prompts])
+            os.environ["LMDX_ALLOW_WORD_TOKENIZER"] = "1"
+            p = _grounded.GroundedParams(num_inference_steps=steps)
+            base_expect = _default_expect(
+                cfg, steps, 0.0,
+                [(p.max_iter, p.max_index_step),
+                 (p.overall_max_iter, p.overall_max_index_step)] * n_prompts,
+                expected_sam, passes=2 * n_prompts)
+            results, refined = [], []
+            orig_run, orig_refine = lmd_method.run, sdxl_refine.refine
+
+            def run_and_keep(*a, **kw):
+                results.append(orig_run(*a, **kw))
+                return results[-1]
+
+            def cli_lmd(label, f32, sdxl=False):
+                """`--use-sdv2 --run-model lmd` through `_drive`: the launches
+                as the schedule and the guidance iterations imply (every UNet
+                attention on the float32 kernels under `f32`; with `sdxl`,
+                kernel 1 also 15 x 70 times per refined image)."""
+                results.clear()
+                refined.clear()
+                save_dir = os.path.join(work, label.replace(" ", "_"))
+                argv = ["--prompt-type", "demo", "--run-model", "lmd", "--use-sdv2",
+                        "--num_prompts", str(n_prompts), "--cache-path", cache_path,
+                        "--save-dir", save_dir, "--sam-checkpoint", sam_dir,
+                        "--num_inference_steps", str(steps), "--no-continue-on-error"]
+                argv += (["--use_autocast", "0"] if f32 else []) + (["--sdxl"] if sdxl else [])
+
+                def expect(iters):
+                    want, ladder_max, note = base_expect(iters)
+                    if f32:
+                        want = {**want, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                                "flash_attention_fwd_f32": want["flash_attention_fwd"],
+                                "flash_attention_bwd_f32": want["flash_attention_bwd"]}
+                        note += "; every UNet attention on the float32 kernels"
+                    if sdxl:
+                        want["flash_attention_fwd"] += n_prompts * REFINER_STEPS * per_call
+                        note += (f"; {n_prompts} refinements x {REFINER_STEPS} steps x "
+                                 f"{per_call}")
+                    return want, ladder_max, note
+
+                lmd_method.run = run_and_keep
+                sdxl_refine.refine = _counting_refine(orig_refine, refined)
+                try:
+                    with _recording_shapes() as seen:
+                        _, launches = _drive(
+                            label, lambda: (_cli(argv), list(results))[1], cfg, steps, expect,
+                            n_passes=2 * n_prompts,
+                            bwd_key="flash_attention_bwd_f32" if f32 else "flash_attention_bwd")
+                finally:
+                    lmd_method.run, sdxl_refine.refine = orig_run, orig_refine
+                return launches, seen, os.path.join(save_dir, "templatev0.1_lmd_demo", "run0")
+
+            # (a) and (c): float32 LMD on SD2.1's fabricated checkpoint.
+            with tempfile.TemporaryDirectory(prefix="lmdx_sd21_ckpt_") as root:
+                _load_fabricated("sd21", SD21, root)
+                os.environ["LMDX_CHECKPOINT_DIR"] = root
+                label = "sd21 lmd f32"
+                launches, seen, run_dir = cli_lmd(label, True)
+                _check_cli_images(label, run_dir, list(range(n_prompts)), cfg, results)
+                _require_sd21_shapes(label, seen, "float32")
+                if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+                    fail(f"{label}: TF32 is on after --use_autocast 0")
+                all_launches[label] = launches
+                os.environ.pop("LMDX_CHECKPOINT_DIR")
+            log("sd21: the fabricated SD2.1 tree is deleted")
+
+            # (d) the SDXL base, and (b) bf16 LMD with each image refined by it.
+            with tempfile.TemporaryDirectory(prefix="lmdx_sdxl_base_") as root:
+                _load_fabricated("sdxl base", SDXL_BASE, root)
+                os.environ["LMDX_CHECKPOINT_DIR"] = root
+                os.environ["LMDX_REFINER_MODEL"] = SDXL_BASE
+                label = "sd21 lmd bf16 + sdxl base"
+                try:
+                    launches, seen, run_dir = cli_lmd(label, False, sdxl=True)
+                finally:
+                    for k in [k for k in sdxl_refine._REFINER_CACHE if k[0] == SDXL_BASE]:
+                        del sdxl_refine._REFINER_CACHE[k]
+                    os.environ.pop("LMDX_REFINER_MODEL")
+                    os.environ.pop("LMDX_CHECKPOINT_DIR")
+                if len(results) != n_prompts:
+                    fail(f"{label}: {len(results)} LMD images (want {n_prompts})")
+                _check_refined(label, run_dir, [r.image for r in results], refined, base_cfg,
+                               SDXL_BASE_FWD_CASES)
+                _require_sd21_shapes(label, seen, "bfloat16", SDXL_BASE_FWD_CASES)
+                all_launches[label] = launches
+            log("sd21: the fabricated SDXL base tree is deleted")
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    log(f"sd21: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return _sum_launches(all_launches)
 
 
 def main() -> None:
@@ -2556,9 +2857,10 @@ def main() -> None:
                     help="DDIM steps of phase 9's float32 LMD through the CLI (depth only; a "
                          "rehearsal flag: the check is the 50 steps of the default)")
     ap.add_argument("--cli-steps", type=int, default=20,
-                    help="DDIM steps of phase 9's batched bf16 LMD+ and of phase 11's LMD+ "
-                         "before the refiner, through the CLI (depth only: phase 3 runs the "
-                         "same work at 50 steps; the refiner's 15 Euler steps are not cut)")
+                    help="DDIM steps of phase 9's batched bf16 LMD+, of phase 11's LMD+ "
+                         "before the refiner and of phase 12's LMD on SD2.1, through the CLI "
+                         "(depth only: phases 3 and 4 run the same work on SD1.x at 50 "
+                         "steps; the refiners' 15 steps are not cut)")
     ap.add_argument("--optin-f32-steps", type=int, default=50,
                     help="DDIM steps of phase 10's float32 LMD+ with every opt-in kernel "
                          "(depth only; a rehearsal flag: the check is the 50 steps of the "
@@ -2614,13 +2916,15 @@ def main() -> None:
         optin_f32 = phase_f32_optin(args.optin_f32_steps, run_dir)
         phase_owlvit(run_dir, len(ATTRIBUTION_RESPONSES))
     sdxl = phase_sdxl(args.cli_steps)
+    sd21 = phase_sd21(args.cli_steps)
     launches = {name: plus[name] + lmd[name] + optin[name] + single[name] + baselines[name]
-                + checkpoint[name] + cli[name] + optin_f32[name] + sdxl[name]
+                + checkpoint[name] + cli[name] + optin_f32[name] + sdxl[name] + sd21[name]
                 for name in kernels}
     log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
         f"single-image methods {single}, baselines and solvers {baselines}, "
         f"checkpoint path {checkpoint}, CLI {cli}, float32 opt-in LMD+ path {optin_f32}, "
-        f"SDXL refiner through the CLI {sdxl}")
+        f"SDXL refiner through the CLI {sdxl}, SD2.1 and the SDXL base through the CLI "
+        f"{sd21}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -2654,21 +2958,25 @@ def main() -> None:
          "library_ms": t["library_ms"] if t["library_ok"] else None}
         for name, t in kernels.items()]}
     n_opt = len(OPTIN_BATCHES)
+    n21 = len(SD21_LEVELS)
     log(f"kernel times: ms, plain_ms, bound_ms and library_ms are sums of one call "
-        f"at each shape above ({3 * len(FWD_CASES)} + {len(REFINER_FWD_CASES)} at d "
+        f"at each shape above ({3 * len(FWD_CASES)} + {len(REFINER_FWD_CASES)} + "
+        f"{len(SDXL_BASE_FWD_CASES)} + {n21 * len(SD21_FWD_CASES)} at d "
         f"{REFINER_HEAD_DIM} for the flash forward, "
-        f"{3 * len(BWD_CASES)} + {len(BWD_SHORT_KV)} for the backward, {len(SAM_CASES)} "
-        f"for SAM, "
+        f"{3 * len(BWD_CASES)} + {n21 * len(SD21_BWD_CASES)} at d 64 + {len(BWD_SHORT_KV)} "
+        f"for the backward, {len(SAM_CASES)} for SAM, "
         f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
         f"for the fused-heads forward, {len(STAT_CASES) * n_opt} + {len(STAT_BWD_CASES)} "
         f"+ {len(STAT_CASES) * n_opt} float32 (x, x) for pair_stats, "
-        f"{3 * len(F32_FWD_CASES)} for the float32 forward, "
-        f"{3 * len(F32_BWD_CASES)} + {len(F32_OPTIN_BWD)} for the float32 backward, "
+        f"{3 * len(F32_FWD_CASES)} + {n21 * len(SD21_FWD_CASES)} at d 64 for the float32 "
+        f"forward, {3 * len(F32_BWD_CASES)} + {n21 * len(SD21_BWD_CASES)} at d 64 + "
+        f"{len(F32_OPTIN_BWD)} for the float32 backward, "
         f"{len(F32_SAM_CASES)} for float32 SAM, {4 * n_opt} for the float32 packed "
         f"forward, {len(F32_FUSED_CASES) * n_opt} for the float32 fused-heads forward); "
         f"launches are those of the LMD+, LMD and opt-in LMD+ paths, the single-image "
         f"methods, the baselines and solvers, the checkpoint path, the CLI, the "
-        f"float32 opt-in LMD+ path and the SDXL refiner through the CLI together")
+        f"float32 opt-in LMD+ path, the SDXL refiner through the CLI and SD2.1 with the "
+        f"SDXL base through the CLI together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -24,18 +24,25 @@ group with duplicate jobs whose images are discarded, so the batches the
 CLI runs are the JAX CLI's; `--warm-ahead` walks the classes in the
 JAX order and prints each one, with nothing to warm.
 
+`--use-sdv2` runs the stage-2 method on SD2.1 base
+(stabilityai/stable-diffusion-2-1-base); GLIGEN methods need SD1.4 and stop
+on the JAX CLI's assertion.
+
 `--sdxl` refines each image with the SDXL refiner
 (`methods/sdxl_refine.py`: LANCZOS upscale to 1024x1024, img2img at strength
-`--sdxl-step-ratio` on Euler, seed + LARGE_CONSTANT4) after the method and
-before the PNG is written, in both loops; the refiner bundle is built once,
-on the first refined image, at its own bfloat16 whatever `--use_autocast`
-says, from `$LMDX_CHECKPOINT_DIR/<model--key>` or random weights
-(LMDX_REFINER_MODEL names another configuration).
+`--sdxl-step-ratio` on the model's scheduler, seed + LARGE_CONSTANT4) after
+the method and before the PNG is written, in both loops; the refiner bundle
+is built once, on the first refined image, at its own bfloat16 whatever
+`--use_autocast` says, from `$LMDX_CHECKPOINT_DIR/<model--key>` or random
+weights. LMDX_REFINER_MODEL names another configuration: the SDXL base
+(stabilityai/stable-diffusion-xl-base-1.0, two text towers, DDIM) or a tiny
+one.
 
-Not ported, refused with the ROADMAP item that holds them: `--mesh`
-(`dist/`, section 1 item 10), `--use-sdv2` and SD2 / SDXL `--sd-model` keys
-(item 6: an SDXL configuration serves only as the refiner). JAX's compile
-cache and multi-host start have no counterpart.
+Refused, with the ROADMAP item that holds them: `--mesh` (`dist/`, not
+ported: section 1 item 10) and an SDXL `--sd-model` key (item 6: an SDXL
+configuration serves only as the `--sdxl` refiner; its UNet needs text_time
+conditioning, which no stage-2 method passes, as in the JAX package). JAX's
+compile cache and multi-host start have no counterpart.
 
 Example (offline, cached layouts, the CPU and the tiny test model):
     python -m lmdx_torch.cli.generate --cpu --sd-model tiny-test \\
@@ -86,8 +93,9 @@ BOOL_INT_ARGS = {"horizontal_shift_only", "so_horizontal_center_only",
 
 NOT_PORTED_MESH = ("--mesh: device-mesh sharding (dist/) is not ported yet "
                    "(ROADMAP.md section 1 item 10)")
-NOT_PORTED_SD2 = ("SD2 and the SDXL base model are not ported yet (ROADMAP.md "
-                  "section 1 item 6)")
+SDXL_STAGE2 = ("an SDXL configuration serves only as the --sdxl refiner: its UNet "
+               "needs text_time conditioning, which no stage-2 method passes "
+               "(ROADMAP.md section 1 item 6)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -136,10 +144,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="not ported: device-mesh sharding (dist/, "
                              "ROADMAP.md section 1 item 10); refused")
     parser.add_argument("--use-sdv2", action="store_true",
-                        help="not ported: SD2 (ROADMAP.md section 1 item 6); refused")
+                        help="run on SD2.1 base (stabilityai/stable-diffusion-2-1-base); "
+                             "GLIGEN methods need SD1.4")
     parser.add_argument("--sd-model", default=None,
-                        help="explicit SD config key override (e.g. tiny-test); "
-                             "SD2 / SDXL keys are refused (ROADMAP.md section 1 item 6)")
+                        help="explicit SD config key override (e.g. tiny-test, "
+                             "stabilityai/stable-diffusion-2-1-base); SDXL keys are "
+                             "refused: they serve only as the --sdxl refiner "
+                             "(LMDX_REFINER_MODEL)")
     parser.add_argument("--ignore-bg-prompt", action="store_true")
     parser.add_argument("--ignore-negative-prompt", action="store_true")
     parser.add_argument("--no-synthetic-prompt", action="store_true")
@@ -154,7 +165,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save-dir", default="img_generations")
     parser.add_argument("--sdxl", action="store_true",
                         help="refine each image with the SDXL refiner (1024x1024 "
-                             "img2img) before it is saved")
+                             "img2img; LMDX_REFINER_MODEL names another one, e.g. "
+                             "the SDXL base) before it is saved")
     parser.add_argument("--sdxl-step-ratio", type=float, default=0.3)
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (device='cpu'); without it the "
@@ -215,14 +227,11 @@ def not_ported(args) -> str | None:
     """Why the flags ask for code the port does not have, or None."""
     if args.mesh is not None:
         return NOT_PORTED_MESH
-    if args.use_sdv2:
-        return f"--use-sdv2: {NOT_PORTED_SD2}"
     if args.sd_model and args.sd_model not in SD_CONFIGS:
         return (f"--sd-model {args.sd_model}: not a configuration of the port "
-                f"({', '.join(sorted(SD_CONFIGS))}); {NOT_PORTED_SD2}")
+                f"({', '.join(sorted(SD_CONFIGS))})")
     if args.sd_model and SD_CONFIGS[args.sd_model]().unet.addition_embed_type:
-        return (f"--sd-model {args.sd_model}: an SDXL configuration serves only as "
-                f"the --sdxl refiner; {NOT_PORTED_SD2}")
+        return f"--sd-model {args.sd_model}: {SDXL_STAGE2}"
     return None
 
 

@@ -2,8 +2,11 @@
 
 Frozen dataclasses, field for field the same as the JAX side, so that a
 configuration names the same network in both packages. Served: SD1.5 (LMD),
-SD1.4+GLIGEN (LMD+), the SDXL refiner (the img2img pass behind the CLI's
-`--sdxl`) and the tiny CPU-test configs (`tiny-test`, `tiny-sdxl`).
+SD1.4+GLIGEN (LMD+), SD2.1 base (`--use-sdv2`: LMD and the non-GLIGEN
+baselines), the SDXL refiner and the SDXL base (the img2img pass behind the
+CLI's `--sdxl`, chosen by LMDX_REFINER_MODEL; neither runs as the stage-2
+model) and the tiny CPU-test configs (`tiny-test`, `tiny-sdxl`,
+`tiny-sdxl-base`).
 """
 
 from __future__ import annotations
@@ -115,14 +118,19 @@ class SDConfig:
     key: str = "gligen/diffusers-generation-text-box"
     unet: UNetConfig = field(default_factory=UNetConfig)
     clip: CLIPTextConfig = field(default_factory=CLIPTextConfig)
-    # Checkpoint subdirectory holding the text tower's weights.
+    # The SDXL base's second tower (OpenCLIP bigG, in text_encoder_2/): the
+    # UNet context is the feature concat of both towers' hidden states, the
+    # pooled vector this tower's projected embedding. None for one tower.
+    clip2: CLIPTextConfig | None = None
+    # Checkpoint subdirectory holding the (first) text tower's weights.
     text_encoder_dir: str = "text_encoder"
     vae: VAEConfig = field(default_factory=VAEConfig)
     height: int = 512
     width: int = 512
     dtype: str = "bfloat16"
     # The integrator the checkpoint's scheduler config names: "ddim" for the
-    # SD1.x bundles, "euler" (EulerDiscrete) for the SDXL refiner.
+    # SD bundles and the SDXL base, "euler" (EulerDiscrete) for the SDXL
+    # refiner.
     default_scheduler: str = "ddim"
 
     @property
@@ -142,8 +150,15 @@ class SDConfig:
 
     @property
     def pooled_dim(self) -> int:
-        """Width of the pooled text embedding that text_time takes."""
-        return self.clip.hidden_size
+        """Width of the pooled text embedding that text_time takes (the SDXL
+        base takes it from its second tower)."""
+        return (self.clip2 or self.clip).hidden_size
+
+    @property
+    def context_dim(self) -> int:
+        """Width of the UNet's cross-attention context (two towers: the
+        concat of both widths)."""
+        return self.clip.hidden_size + (self.clip2.hidden_size if self.clip2 else 0)
 
 
 def sd15() -> SDConfig:
@@ -155,6 +170,21 @@ def sd14_gligen() -> SDConfig:
     """SD v1.4 with GLIGEN grounding adapters (LMD+'s base model)."""
     return SDConfig(key="gligen/diffusers-generation-text-box",
                     unet=UNetConfig(use_gligen=True))
+
+
+def sd21_base() -> SDConfig:
+    """SD v2.1 base (stabilityai/stable-diffusion-2-1-base, the reference's
+    `--use-sdv2`): the SD1.x UNet with linear projections, 5/10/20/20 heads
+    (head dim 64 at every level) and 1024-wide cross-attention, conditioned
+    on the last hidden state of OpenCLIP ViT-H (23 layers, 1024 wide, 16
+    heads, exact GELU), 512x512, DDIM."""
+    return SDConfig(
+        key="stabilityai/stable-diffusion-2-1-base",
+        unet=UNetConfig(cross_attention_dim=1024, num_attention_heads=(5, 10, 20, 20),
+                        use_linear_projection=True),
+        clip=CLIPTextConfig(hidden_size=1024, intermediate_size=4096, num_layers=23,
+                            num_heads=16, hidden_act="gelu"),
+    )
 
 
 def sdxl_refiner() -> SDConfig:
@@ -189,6 +219,37 @@ def sdxl_refiner() -> SDConfig:
     )
 
 
+def sdxl_base() -> SDConfig:
+    """The SDXL base (stabilityai/stable-diffusion-xl-base-1.0): a 3-level
+    UNet (transformer depths 1, 2, 10 at the levels without, with 4096 and
+    with 1024 tokens at 1024x1024; head dim 64), linear projections, text_time
+    on 6 ids (size, crop, target size), conditioned on the feature concat of
+    two towers' penultimate hidden states: CLIP ViT-L (768, quick GELU) and
+    OpenCLIP bigG (1280, exact GELU; its projected pooled embedding is the
+    pooled vector): a 2048-wide context. 1024x1024, DDIM."""
+    return SDConfig(
+        key="stabilityai/stable-diffusion-xl-base-1.0",
+        unet=UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+            up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+            cross_attention_dim=2048,
+            num_attention_heads=(5, 10, 20),
+            transformer_layers_per_block=(1, 2, 10),
+            use_linear_projection=True,
+            addition_embed_type="text_time",
+            projection_class_embeddings_input_dim=2816,  # 1280 + 256 * 6
+        ),
+        clip=CLIPTextConfig(hidden_size=768, intermediate_size=3072, num_layers=12,
+                            num_heads=12, hidden_act="quick_gelu", penultimate_hidden=True),
+        clip2=CLIPTextConfig(hidden_size=1280, intermediate_size=5120, num_layers=32,
+                             num_heads=20, hidden_act="gelu", penultimate_hidden=True,
+                             use_text_projection=True),
+        height=1024,
+        width=1024,
+    )
+
+
 def tiny_sdxl() -> SDConfig:
     """Miniature SDXL-class config for CPU tests (per-level transformer
     depth, text_time, linear projections; same as the JAX side)."""
@@ -211,6 +272,39 @@ def tiny_sdxl() -> SDConfig:
         clip=CLIPTextConfig(vocab_size=1024, hidden_size=32, intermediate_size=64,
                             num_layers=2, num_heads=2, penultimate_hidden=True,
                             use_text_projection=True),
+        vae=VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
+                      norm_num_groups=8),
+        height=32,
+        width=32,
+        dtype="float32",
+    )
+
+
+def tiny_sdxl_base() -> SDConfig:
+    """Miniature SDXL-base config for CPU tests: two towers (16 and 32 wide)
+    whose concat (48) is the context, pooled from the second tower's
+    projection (same as the JAX side)."""
+    return SDConfig(
+        key="tiny-sdxl-base",
+        unet=UNetConfig(
+            block_out_channels=(32, 64),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+            up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+            layers_per_block=1,
+            cross_attention_dim=48,  # 16 (clip) + 32 (clip2)
+            num_attention_heads=(2, 2),
+            transformer_layers_per_block=(1, 2),
+            norm_num_groups=8,
+            use_linear_projection=True,
+            addition_embed_type="text_time",
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=32 + 8 * 6,
+        ),
+        clip=CLIPTextConfig(vocab_size=1024, hidden_size=16, intermediate_size=32,
+                            num_layers=2, num_heads=2, penultimate_hidden=True),
+        clip2=CLIPTextConfig(vocab_size=1024, hidden_size=32, intermediate_size=64,
+                             num_layers=2, num_heads=2, hidden_act="gelu",
+                             penultimate_hidden=True, use_text_projection=True),
         vae=VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
                       norm_num_groups=8),
         height=32,
@@ -247,7 +341,10 @@ def tiny_test() -> SDConfig:
 SD_CONFIGS = {
     "runwayml/stable-diffusion-v1-5": sd15,
     "gligen/diffusers-generation-text-box": sd14_gligen,
+    "stabilityai/stable-diffusion-2-1-base": sd21_base,
     "stabilityai/stable-diffusion-xl-refiner-1.0": sdxl_refiner,
+    "stabilityai/stable-diffusion-xl-base-1.0": sdxl_base,
     "tiny-test": tiny_test,
     "tiny-sdxl": tiny_sdxl,
+    "tiny-sdxl-base": tiny_sdxl_base,
 }

@@ -12,7 +12,9 @@ conditioning where the UNet has it (the refiner: 5 ids, the aesthetic score
 The refiner bundle (`load_refiner_bundle`) is the SDXL refiner
 (stabilityai/stable-diffusion-xl-refiner-1.0: one OpenCLIP bigG tower, the
 text_time UNet, EulerDiscrete, 1024x1024) unless LMDX_REFINER_MODEL names
-another configuration (`tiny-sdxl` for CPU tests). It is built at its
+another configuration: the SDXL base (stabilityai/stable-diffusion-xl-base-1.0:
+two towers, the base's 6 time ids, DDIM), or `tiny-sdxl` / `tiny-sdxl-base`
+for CPU tests. It is built at its
 configuration's bfloat16 with the default `KernelOptions()`, whatever the
 stage-2 bundle's precision, as the JAX side's loader passes no dtype; it
 reads `$LMDX_CHECKPOINT_DIR/<model--key>` as `load_bundle` does.

@@ -2,9 +2,11 @@
 transformers key names (text_model.embeddings..., text_model.encoder.layers.N...,
 text_projection). Returns the last hidden state (the UNet conditioning) and
 the pooled EOS-token embedding (the GLIGEN phrase embedding). OpenCLIP towers
-(the SDXL refiner's bigG) take exact GELU, return the penultimate layer's
-hidden state under `penultimate_hidden`, and project the pooled embedding
-with `text_projection` under `use_text_projection`.
+take exact GELU: SD2.1's ViT-H returns the last hidden state as SD1.x's tower
+does; the SDXL towers (the refiner's bigG, the base's CLIP ViT-L and bigG)
+return the penultimate layer's hidden state under `penultimate_hidden`, and
+bigG projects the pooled embedding with `text_projection` under
+`use_text_projection`.
 """
 
 from __future__ import annotations

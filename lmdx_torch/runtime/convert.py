@@ -2,8 +2,10 @@
 names), so that both packages can run the same weights.
 
 `from_jax_params(params, config)` takes the JAX bundle's parameter tree with
-numpy leaves ({"unet", "text", "vae", "position_net"}) and returns
-{"unet", "text", "vae", "position_net"} state dicts of f32 tensors:
+numpy leaves ({"unet", "text", "vae", "position_net", "text2"}) and returns
+{"unet", "text", "vae", "position_net", "text2"} state dicts of f32 tensors
+(GLIGEN's "position_net" and the SDXL base's second tower "text2" where the
+config has them):
 
 - Dense kernel (in, out)   -> Linear weight (out, in)
 - Conv kernel HWIO         -> Conv2d weight OIHW
@@ -22,8 +24,8 @@ side's `convert_sam` maps onto that tree: its exact inverse.
 `OwlViTForObjectDetection` names, the inverse of `convert_owlvit`).
 
 Checkpoint directories (diffusers / transformers layout, `<dir>/unet`,
-`<dir>/text_encoder` (the SDXL refiner: `<dir>/text_encoder_2`), `<dir>/vae`;
-SAM in one directory):
+`<dir>/text_encoder` (the SDXL refiner: `<dir>/text_encoder_2`; the SDXL
+base: both), `<dir>/vae`; SAM in one directory):
 `load_checkpoint(config, dir)` reads them into state dicts named as the
 port's modules name their parameters, in the file's dtype and still on the
 host (a safetensors file is mapped, not copied: `safetensors_io`);
@@ -112,6 +114,8 @@ def from_jax_params(params: dict, config: SDConfig) -> dict:
            "vae": state_dict_from_tree(vae)}
     if config.unet.use_gligen:
         out["position_net"] = state_dict_from_tree(params["position_net"])
+    if config.clip2 is not None:
+        out["text2"] = state_dict_from_tree(params["text2"])
     return out
 
 
@@ -287,6 +291,14 @@ _COMPONENT_MANIFESTS = {
     "gligen/diffusers-generation-text-box": {
         "unet": "unet_gligen", "text_encoder": "text_encoder_clip_vit_l",
         "vae": "vae_sd"},
+    # --use-sdv2's model: OpenCLIP ViT-H.
+    "stabilityai/stable-diffusion-2-1-base": {
+        "unet": "unet_sd21", "text_encoder": "text_encoder_clip_vit_h",
+        "vae": "vae_sd"},
+    # The SDXL base: two towers (CLIP ViT-L, and bigG with its projection).
+    "stabilityai/stable-diffusion-xl-base-1.0": {
+        "unet": "unet_sdxl_base", "text_encoder": "text_encoder_clip_vit_l",
+        "text_encoder_2": "text_encoder_clip_bigg", "vae": "vae_sd"},
     # The SDXL refiner ships its one (bigG) tower as text_encoder_2/.
     "stabilityai/stable-diffusion-xl-refiner-1.0": {
         "unet": "unet_sdxl_refiner", "text_encoder_2": "text_encoder_clip_bigg",
@@ -385,8 +397,9 @@ def _modern_vae(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 def load_checkpoint(config: SDConfig, checkpoint_dir: str) -> dict:
     """A diffusers checkpoint directory (the text tower from
-    `config.text_encoder_dir`) -> {"unet", "text", "vae"[,
-    "position_net"]} state dicts for `runtime.models.build_bundle`, named as
+    `config.text_encoder_dir`, a second one from `text_encoder_2/`) ->
+    {"unet", "text", "vae"[, "position_net"][, "text2"]} state dicts for
+    `runtime.models.build_bundle`, named as
     the port's modules name their parameters: `*.position_ids` dropped, the
     VAE attention in the modern names, GLIGEN's `position_net.*` split off
     the UNet's file. Tensors stay on the host in the file's dtype; the
@@ -398,6 +411,8 @@ def load_checkpoint(config: SDConfig, checkpoint_dir: str) -> dict:
     unet = load("unet")
     out = {"unet": unet, "text": load(config.text_encoder_dir),
            "vae": _modern_vae(load("vae"))}
+    if config.clip2 is not None:
+        out["text2"] = load("text_encoder_2")
     if config.unet.use_gligen:
         prefix = "position_net."
         out["position_net"] = {k[len(prefix):]: v for k, v in unet.items()

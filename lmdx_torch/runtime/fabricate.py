@@ -7,7 +7,10 @@
 Writes `<root>/<model--key>/{unet,text_encoder,vae}/` (diffusers file names)
 for each SD model key (the SDXL refiner's tower in `text_encoder_2/`:
 `--sdxl-refiner` adds `stabilityai/stable-diffusion-xl-refiner-1.0`, 3.038B
-values, 6.08 GB in fp16), with `--sam`, `<root>/facebook--sam-vit-base/` and,
+values, 6.08 GB in fp16; `--models` also takes
+`stabilityai/stable-diffusion-2-1-base`, 1.290B values, and
+`stabilityai/stable-diffusion-xl-base-1.0`, 3.469B values with both towers,
+`text_encoder/` and `text_encoder_2/`), with `--sam`, `<root>/facebook--sam-vit-base/` and,
 with `--owlvit`, `<root>/google--owlvit-base-patch32/` (153.2M values, 0.31
 GB in fp16), in the safetensors format, with exactly the keys and shapes of the manifests
 (`runtime/manifests/`). Values: norm weights 1 (a zero scale would zero every

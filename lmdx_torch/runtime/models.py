@@ -55,6 +55,9 @@ class ModelBundle:
     device: torch.device
     # The checkpoint directory the weights came from; None = random weights.
     checkpoint_dir: str | None = None
+    # The SDXL base's second tower (bigG): `encode_text` concats both towers'
+    # hidden states and takes the pooled vector from this one.
+    text_encoder_2: CLIPTextEncoder | None = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -119,10 +122,17 @@ def _assign(module: nn.Module, state_dict: dict, device: torch.device, dtype_of)
     module.load_state_dict(placed, strict=True, assign=True)
 
 
+def build_text_encoder_2(config: SDConfig) -> CLIPTextEncoder | None:
+    """The second tower of `config` (the SDXL base's bigG), or None."""
+    if config.clip2 is None:
+        return None
+    return CLIPTextEncoder(config.clip2, dtype=config.torch_dtype())
+
+
 def build_modules(config: SDConfig, kernels: KernelOptions | None = None) -> dict:
-    """{"unet", "text", "vae", "position_net" (None without GLIGEN)} of
-    `config`, on the current default device (`with torch.device("meta")`:
-    shapes and names only, nothing allocated)."""
+    """{"unet", "text", "vae", "position_net" (None without GLIGEN), "text2"
+    (None with one tower)} of `config`, on the current default device (`with
+    torch.device("meta")`: shapes and names only, nothing allocated)."""
     dtype = config.torch_dtype()
     return {"unet": UNet2DCondition(config.unet, dtype=dtype,
                                     kernels=kernels or KernelOptions()),
@@ -131,14 +141,16 @@ def build_modules(config: SDConfig, kernels: KernelOptions | None = None) -> dic
             "position_net": (PositionNet(config.clip.hidden_size,
                                          config.unet.cross_attention_dim,
                                          config.unet.gligen_fourier_freqs)
-                             if config.unet.use_gligen else None)}
+                             if config.unet.use_gligen else None),
+            "text2": build_text_encoder_2(config)}
 
 
 def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 0,
                  device=None, kernels: KernelOptions | None = None, *,
                  tokenizer=None, checkpoint_dir: str | None = None) -> ModelBundle:
-    """Bundle from state dicts ({"unet", "text", "vae"[, "position_net"]},
-    any dtype, on the host) or, when None, from seeded random weights.
+    """Bundle from state dicts ({"unet", "text", "vae"[, "position_net"][,
+    "text2"]}, any dtype, on the host) or, when None, from seeded random
+    weights.
     `kernels` chooses the UNet's opt-in kernels (None: all off, the default
     path); the weights and their names are the same under every choice.
     `tokenizer` defaults to `text.tokens.default_tokenizer()`."""
@@ -146,15 +158,18 @@ def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 
     dtype = config.torch_dtype()
     with torch.device(device if state_dicts is None else "meta"):
         parts = build_modules(config, kernels)
-    unet, text, vae, pn = (parts[k] for k in ("unet", "text", "vae", "position_net"))
+    unet, text, vae, pn, text2 = (parts[k] for k in ("unet", "text", "vae", "position_net",
+                                                     "text2"))
     if state_dicts is None:
-        # The VAE's encode half draws last, after PositionNet, so that every
-        # other weight is what the same seed drew before the encoder existed.
+        # The VAE's encode half draws after PositionNet and the second tower
+        # last, so that every other weight is what the same seed drew before
+        # the encoder and the second tower existed.
         vae_params = list(vae.named_parameters())
         encode_half = [(n, p) for n, p in vae_params if n.startswith(ENCODE_HALF)]
         order = [unet.named_parameters(), text.named_parameters(),
                  [(n, p) for n, p in vae_params if not n.startswith(ENCODE_HALF)],
-                 pn.named_parameters() if pn is not None else [], encode_half]
+                 pn.named_parameters() if pn is not None else [], encode_half,
+                 text2.named_parameters() if text2 is not None else []]
         generator = torch.Generator(device=device).manual_seed(seed)
         for named in order:
             _random_init(named, generator)
@@ -172,7 +187,7 @@ def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 
         module.eval().requires_grad_(False)
     return ModelBundle(config=config, tokenizer=tokenizer or toklib.default_tokenizer(),
                        unet=unet, text_encoder=text, vae=vae, position_net=pn,
-                       device=device, checkpoint_dir=checkpoint_dir)
+                       device=device, checkpoint_dir=checkpoint_dir, text_encoder_2=text2)
 
 
 def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
@@ -182,8 +197,9 @@ def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
 
     checkpoint_dir: a diffusers checkpoint directory (`unet/`, `vae/`,
     `text_encoder/` or the config's `text_encoder_dir`, the SDXL refiner's
-    `text_encoder_2/`; optionally `tokenizer/`, the only tokenizer
-    directory read, as on the JAX side); when None,
+    `text_encoder_2/`; the SDXL base has both; optionally `tokenizer/`, the
+    only tokenizer directory read, as on the JAX side: both of the SDXL
+    base's towers take it); when None,
     `$LMDX_CHECKPOINT_DIR/<model_key with / as -->` if that directory exists,
     else random weights from `seed`. The tokenizer is the CLIP BPE of
     `<checkpoint>/tokenizer/vocab.json` when there is one; a checkpoint of a
@@ -336,10 +352,14 @@ def build_owlvit(config: OwlViTConfig | None = None, state_dict: dict | None = N
 
 @torch.no_grad()
 def encode_text(bundle: ModelBundle, texts: list[str]):
-    """Raw texts -> (hidden (N, 77, D) f32, pooled (N, D) f32) on the device,
+    """Raw texts -> (hidden (N, 77, D) f32, pooled (N, Dp) f32) on the device,
     as the config's tower gives them: the last hidden state and the pooled
-    EOS embedding (SD1.x), or the penultimate hidden state and the projected
-    pooled embedding (the SDXL refiner's bigG)."""
+    EOS embedding (SD1.x, SD2.1's ViT-H), or the penultimate hidden state and
+    the projected pooled embedding (the SDXL refiner's bigG). Two towers (the
+    SDXL base): hidden is the feature concat of both towers' states (768 |
+    1280 = 2048), pooled the second tower's; both take the same ids. (The
+    JAX side pads the batch to a power of two with EOS rows and slices them
+    off; each row is independent, so the port pads nothing.)"""
     ids = np.asarray(
         [bundle.tokenizer.encode(t, pad_to=toklib.MAX_LENGTH) for t in texts], np.int64)
     # Reduced-vocab test configs only: fold ids into the model's vocab.
@@ -348,8 +368,11 @@ def encode_text(bundle: ModelBundle, texts: list[str]):
     if vocab < toklib.BOS_ID:
         ids = ids % vocab
         eos_id = eos_id % vocab
-    hidden, pooled = bundle.text_encoder(
-        torch.from_numpy(ids).to(bundle.device), eos_token_id=eos_id)
+    ids = torch.from_numpy(ids).to(bundle.device)
+    hidden, pooled = bundle.text_encoder(ids, eos_token_id=eos_id)
+    if bundle.text_encoder_2 is not None:
+        hidden2, pooled = bundle.text_encoder_2(ids, eos_token_id=eos_id)
+        hidden = torch.cat([hidden, hidden2], dim=-1)
     return hidden.float(), pooled.float()
 
 

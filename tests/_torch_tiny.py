@@ -63,10 +63,11 @@ def tiny_params(seed: int = 0, config=None):
     return jax.tree_util.tree_map_with_path(lambda p, x: _value(p, x, rng), shapes)
 
 
-def tiny_bundles(seed: int = 0, key: str = "tiny-test"):
+def tiny_bundles(seed: int = 0, key: str = "tiny-test", configs=None):
     """(JAX bundle, port bundle on the CPU) of the tiny-test config (or the
-    tiny config `key`, e.g. tiny-sdxl)."""
-    config = jmodels.SD_CONFIGS[key]()
+    tiny config `key`, e.g. tiny-sdxl; or `configs`, a (JAX config, port
+    config) pair that names the same network)."""
+    config = configs[0] if configs else jmodels.SD_CONFIGS[key]()
     params = tiny_params(seed, config)
     unet, text_encoder, vae, position_net = jmodels.build_modules(config)
     jb = jmodels.ModelBundle(
@@ -74,7 +75,7 @@ def tiny_bundles(seed: int = 0, key: str = "tiny-test"):
         text_encoder=text_encoder, vae=vae, position_net=position_net,
         params=jax.device_put(params),
         text_encoder_2=jmodels.build_text_encoder_2(config))
-    tcfg = tconfig.SD_CONFIGS[key]()
+    tcfg = configs[1] if configs else tconfig.SD_CONFIGS[key]()
     tb = tmodels.build_bundle(tcfg, convert.from_jax_params(params, tcfg), device="cpu")
     return jb, tb
 

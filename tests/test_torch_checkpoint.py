@@ -52,7 +52,8 @@ from tests.test_torch_slice import OVERRIDES, SPECS
 REPO = Path(__file__).resolve().parents[1]
 ERAS = ["modern", "legacy", "legacy_4d"]
 MANIFESTS = ["unet_gligen", "unet_sd15", "text_encoder_clip_vit_l", "vae_sd", "sam_vit_base",
-             "unet_sdxl_refiner", "text_encoder_clip_bigg"]
+             "unet_sdxl_refiner", "text_encoder_clip_bigg", "unet_sd21",
+             "text_encoder_clip_vit_h", "unet_sdxl_base"]
 # The port's module names -> the manifests' legacy VAE attention names.
 LEGACY = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
 
@@ -488,6 +489,8 @@ def _to_legacy(key):
 
 UNET_VALUES = {"gligen/diffusers-generation-text-box": 1_068_623_204,
                "runwayml/stable-diffusion-v1-5": 859_520_964,
+               "stabilityai/stable-diffusion-2-1-base": 865_910_724,
+               "stabilityai/stable-diffusion-xl-base-1.0": 2_567_463_684,
                "stabilityai/stable-diffusion-xl-refiner-1.0": 2_259_526_660}
 
 
@@ -506,6 +509,12 @@ def test_full_size_modules_match_the_manifests(model_key):
     manifests = convert._COMPONENT_MANIFESTS[model_key]
     assert unet == convert.load_manifest(manifests["unet"])
     assert text == convert.load_manifest(manifests[cfg.text_encoder_dir])
+    # The SDXL base's second tower (bigG) is text_encoder_2/.
+    assert (parts["text2"] is not None) == ("text_encoder_2" in manifests
+                                            and cfg.text_encoder_dir != "text_encoder_2")
+    if parts["text2"] is not None:
+        text2 = {k: list(v.shape) for k, v in parts["text2"].state_dict().items()}
+        assert text2 == convert.load_manifest(manifests["text_encoder_2"])
     want_vae = convert.load_manifest(manifests["vae"])
     renamed = {k for k in vae if _to_legacy(k) != k}
     assert len(renamed) == 16
@@ -556,7 +565,7 @@ def test_fabricator_writes_the_manifests_with_stable_bytes(tmp_path):
     _fabricate_in_subprocess(manifests, str(a), 1)
     _fabricate_in_subprocess(manifests, str(b), 2)
     files = _files(a)
-    assert files == _files(b) and len(files) == 10
+    assert files == _files(b) and len(files) == 17
     for f in files:
         assert (a / f).read_bytes() == (b / f).read_bytes(), f
 

@@ -13,7 +13,9 @@ package's (`lmdx/cli/generate.py`).
 - The port's CLI on the CPU at tiny-test writes PNGs equal bit for bit to
   what its methods return for the same seeds (sequential and batched, the
   padded tail group, `--warm-ahead`), leaves an existing image untouched on
-  resume, and refuses the flags whose code is not ported.
+  resume, and refuses `--mesh` (not ported) and an SDXL stage-2 model (a
+  refiner only); `--use-sdv2` and the SD2.1 `--sd-model` make the JAX
+  CLI's calls.
 
 Each test writes its own layout cache for the demo prompts: hand-written
 responses in the template's format (3, 1 and 2 boxes).
@@ -198,6 +200,9 @@ MAIN_CASES = [
     ["--run-model", "lmd_plus", "--image-batch-size", "2", "--max-compiled-variants", "1"],
     ["--run-model", "lmd", "--image-batch-size", "2", "--use_autocast", "0",
      "--no-pipeline-batches", "--loss_threshold", "0.3"],
+    # SD2.1 base: the two flags that select it.
+    ["--run-model", "lmd", "--use-sdv2", "--use_autocast", "0"],
+    ["--run-model", "boxdiff", "--sd-model", "stabilityai/stable-diffusion-2-1-base"],
 ]
 
 
@@ -223,6 +228,8 @@ def test_main_makes_the_same_calls(argv, cache_path, tmp_path, monkeypatch):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_tf32
     assert calls["torch"] == calls["jax"]
     assert len(calls["torch"]) > 1
+    if "--use-sdv2" in argv or "stabilityai/stable-diffusion-2-1-base" in argv:
+        assert calls["torch"][0][:2] == ("load_bundle", "stabilityai/stable-diffusion-2-1-base")
     j_files = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*.png"))
     t_files = sorted(p.relative_to(tmp_path / "torch")
                      for p in (tmp_path / "torch").rglob("*.png"))
@@ -238,8 +245,10 @@ def test_main_makes_the_same_calls(argv, cache_path, tmp_path, monkeypatch):
     # --sdxl is ported (tests/test_torch_sdxl_refiner.py); an SDXL key as the
     # stage-2 model stays refused.
     (["--sd-model", "stabilityai/stable-diffusion-xl-refiner-1.0"], "item 6"),
-    (["--use-sdv2", "--run-model", "sd"], "item 6"),
-    (["--sd-model", "stabilityai/stable-diffusion-2-1-base"], "item 6"),
+    # SD2.1 runs (test_main_makes_the_same_calls, tests/test_torch_sd21.py);
+    # the SDXL base, like the refiner, serves only as the --sdxl refiner.
+    (["--sd-model", "stabilityai/stable-diffusion-xl-base-1.0"], "item 6"),
+    (["--sd-model", "tiny-sdxl-base", "--run-model", "sd"], "item 6"),
 ])
 def test_flags_whose_code_is_not_ported_refuse(argv, needle, cache_path, capsys):
     with pytest.raises(SystemExit) as err:

@@ -110,6 +110,40 @@ def test_forward_at_the_refiner_head_dim_matches_plain(cuda, bh, lq, lk, d):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
+# SD2.1 base at head dim 64 (5, 10 and 20 heads at 4096, 1024 and 256
+# tokens): the backward at LMD's guidance batches (the per-box guidance of 3
+# boxes and batch 1), the forward also at a 3-box layout's per-box pass
+# (3 x CFG); the SDXL base's self-attention (CFG batch 2 x 10 heads at 4096
+# tokens, x 20 at 1024).
+D64_BWD_SHAPES = [(15, 4096, 4096, 64), (30, 1024, 1024, 64), (60, 256, 256, 64),
+                  (5, 4096, 4096, 64), (10, 1024, 1024, 64), (20, 256, 256, 64)]
+D64_FWD_SHAPES = [(30, 4096, 4096, 64), (60, 1024, 1024, 64), (120, 256, 256, 64),
+                  (20, 4096, 4096, 64), (40, 1024, 1024, 64)]
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", D64_FWD_SHAPES)
+def test_forward_at_sd21_and_sdxl_base_shapes_matches_plain(cuda, bh, lq, lk, d):
+    q, k, v, _ = _inputs(bh, lq, lk, d, cuda, seed=6)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", D64_BWD_SHAPES)
+def test_backward_at_sd21_shapes_matches_plain(cuda, bh, lq, lk, d):
+    q, k, v, do = _inputs(bh, lq, lk, d, cuda, seed=7)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    fa.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    want = fa.attention_bwd_plain(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd"] == 1
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
 @pytest.mark.parametrize("bh,lq,lk,d", SHAPES)
 def test_backward_matches_plain(cuda, bh, lq, lk, d):
     q, k, v, do = _inputs(bh, lq, lk, d, cuda, seed=1)
@@ -519,6 +553,23 @@ def test_f32_backward_matches_plain(no_tf32, bh, lq, lk, d):
     want = fa.attention_bwd_plain(q, k, v, lse, o, do)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention_bwd_f32"] == 1 and fa.LAUNCHES["flash_attention_bwd"] == 0
+    for g, w in zip(got, want):
+        _close_f32(g, w)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", D64_BWD_SHAPES)
+def test_f32_kernels_at_sd21_shapes_match_plain(no_tf32, bh, lq, lk, d):
+    """Kernels 1-f32 and 2-f32 at SD2.1's head dim 64 (its float32 LMD)."""
+    q, k, v, do = _inputs(bh, lq, lk, d, no_tf32, seed=22, dtype=torch.float32)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    o_ref, lse_ref = fa.attention_fwd_plain(q, k, v)
+    want = fa.attention_bwd_plain(q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd_f32"] == fa.LAUNCHES["flash_attention_bwd_f32"] == 1
+    _close_f32(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
     for g, w in zip(got, want):
         _close_f32(g, w)
 

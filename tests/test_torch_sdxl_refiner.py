@@ -70,14 +70,17 @@ def _image(seed, size):
     return np.random.default_rng(seed).integers(0, 256, (size, size, 3), dtype=np.uint8)
 
 
-@pytest.mark.parametrize("key", ["tiny-sdxl", REFINER])
+@pytest.mark.parametrize("key", ["tiny-sdxl", REFINER, "stabilityai/stable-diffusion-2-1-base",
+                                 "stabilityai/stable-diffusion-xl-base-1.0", "tiny-sdxl-base"])
 def test_configs_match_jax(key):
-    """The port's configuration carries the JAX one's fields and values."""
-    want = dataclasses.asdict(jconfig.SD_CONFIGS[key]())
-    got = dataclasses.asdict(tconfig.SD_CONFIGS[key]())
-    assert want.pop("clip2") is None
+    """The port's configuration carries the JAX one's fields and values (the
+    second tower too), and its derived widths."""
+    jcfg, tcfg = jconfig.SD_CONFIGS[key](), tconfig.SD_CONFIGS[key]()
+    want = dataclasses.asdict(jcfg)
+    got = dataclasses.asdict(tcfg)
     want.pop("param_dtype")
     assert got == want
+    assert (tcfg.pooled_dim, tcfg.context_dim) == (jcfg.pooled_dim, jcfg.context_dim)
 
 
 @pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
@@ -152,13 +155,14 @@ class _Bundle:
         self.checkpoint_dir = None
 
 
-def _record(monkeypatch, side, refiner, result_cls):
+def _record(monkeypatch, side, refiner, result_cls, refiner_key="tiny-sdxl"):
     """Stage 2 by recorders (each image a seeded 16x16 one); the refiner
-    bundle of LMDX_REFINER_MODEL is `refiner`, the stage-2 one a stub."""
+    bundle of LMDX_REFINER_MODEL (`refiner_key`) is `refiner`, the stage-2
+    one a stub."""
     gen, models, methods, batch, sdxl = side
 
     def load_bundle(key, **kw):
-        return refiner if key == "tiny-sdxl" else _Bundle(refiner.tokenizer)
+        return refiner if key == refiner_key else _Bundle(refiner.tokenizer)
 
     class Method:
         def __init__(self, name):

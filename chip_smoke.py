@@ -6,11 +6,11 @@
                           [--cli-f32-steps N] [--cli-steps N] [--optin-f32-steps N]
                           [--profile PATH]
 
-Twelve phases; any failure exits nonzero before the final line is printed.
-Phases 3-7, 9 and 10 run on random weights (LMDX_CHECKPOINT_DIR is unset for
-them); phase 8 loads checkpoints from disk, phase 9 a fabricated SAM, phase
-10 a fabricated OWL-ViT, phase 11 a fabricated SDXL refiner, phase 12 a
-fabricated SD2.1 base, SDXL base and SAM.
+Fifteen phases; any failure exits nonzero before the final line is printed.
+Phases 3-7, 9, 10 and 13-15 run on random weights (LMDX_CHECKPOINT_DIR is
+unset for them); phase 8 loads checkpoints from disk, phase 9 a fabricated
+SAM, phase 10 a fabricated OWL-ViT, phase 11 a fabricated SDXL refiner,
+phase 12 a fabricated SD2.1 base, SDXL base and SAM.
 
 1. Build: compiles every CUDA source of the port (`lmdx_torch/csrc/*.cu`,
    seven), one nvcc per source, all started together, into build/kernels/,
@@ -239,9 +239,43 @@ fabricated SD2.1 base, SDXL base and SAM.
    self-attentions of a UNet call, B*H 20 at 4096 tokens and 40 at 1024)
    and nothing else, at exactly phase 2's SDXL base shapes; each img_0.png
    is 1024x1024x3 uint8 and not the LANCZOS upscale.
+13. The CLI's opt-in kernels: `lmdx_torch.cli.generate.main` with
+   LMDX_PACKED_ATTENTION, LMDX_FUSED_HEADS and LMDX_PALLAS_GROUPNORM set to
+   "1" for this phase only, `--run-model lmd_plus --image-batch-size 2` on
+   the first two demo layouts (3 boxes and 1: the per-box pass at UNet
+   batch 8, as in phase 5), bf16, `--cli-steps` DDIM steps. The launches of
+   kernels 3, 4, 2 and 6 must be what phase 5's per-step counts give at
+   this depth and the recorded guidance iterations (`_optin_expect`), the
+   per-head forward's 0; every opt-in wrapper shape one phase 2 checked.
+14. The webui (`lmdx_torch.webui.server`) serving the default bundle
+   (SD1.4+GLIGEN, random weights) on an ephemeral port in a thread, from a
+   layout cache of the demo prompts in a temporary directory: GET / lists
+   the registry; POSTs of `lmd_plus` (3 boxes) and `lmd` (2 boxes) at
+   `--cli-steps` DDIM steps, each with `_drive`'s checks and the launches
+   phase 6's plan implies, and each page's image equal bit for bit to
+   `get_method(m).run` on the same spec and seed. Then SAM ViT-B (random
+   weights) on host images: a grayscale and an RGBA image (one chunk of 2)
+   and four sizes in one batch (resized to 1024x1024 with PIL's bilinear
+   filter), box-prompted: the masks and IoU of the same pixels converted by
+   hand and handed in as CUDA tensors, 12 launches of kernel 5 a chunk.
+15. Training: the GLIGEN adapter step (`lmdx_torch.training`) on the
+   full-width SD1.4+GLIGEN UNet (random weights, seed 0, the fusers' gates
+   opened to 0.7 / -0.4), float32 parameters and AdamW state (lr 1e-4, the
+   adapter mask), batch 2 at 512x512: SPECS' prompts through CLIP, their
+   boxes' grounding tokens through PositionNet, seeded latents and noise.
+   (a) 3 float32 steps (kernels 1-f32, 2-f32); (b) 5 bf16 steps from the
+   same weights (kernels 1, 2). Every loss finite; the first bf16 loss within
+   2e-2 of the first float32 one; frozen parameters bit for bit unchanged,
+   every adapter parameter changed; each step 30 forward launches (15
+   self-attentions and 15 fusers at >= 256 tokens) and 29 backward ones
+   (all but the first self-attention, before the first trained parameter);
+   every shape one phase 2 checked. (c) `checkpoint.save`, a step,
+   `restore`: bit for bit. (d) one step under `utils.trace.trace` with
+   `annotate("train_step")`: the Chrome trace holds the span and both
+   kernels' events. Each mode's step wall and peak memory are printed.
 
-Matmuls and convolutions run in bf16 (phase 9 (a) and phase 10: float32); TF32 is turned
-off for both (torch.backends.cuda.matmul.allow_tf32 and
+Matmuls and convolutions run in bf16 (phase 9 (a), phase 10 and phase 15 (a):
+float32); TF32 is turned off for both (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32), so the plain versions' f32 products are full
 f32.
 The last line is {"ok": true, "device": {...}}.
@@ -252,6 +286,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -1720,7 +1755,9 @@ def _phase2_shapes():
     """Every shape phase 2 holds the flash forward, the default paths'
     backward and SAM attention to, in bf16 and in float32, as
     `_recording_shapes` records them: SD1.x's levels at 8 heads, SD2.1's
-    at 5, 10 and 20, the SDXL refiner's and the SDXL base's self-attention."""
+    at 5, 10 and 20, the SDXL refiner's and the SDXL base's self-attention;
+    the float32 backward also at batch 2, KV L and L + 30 (F32_OPTIN_BWD,
+    which phase 2 checks for phase 10 and phase 15's training step gives)."""
 
     def flash(levels, cases, dtype):
         return {(b, h, L, L + e, d, dtype) for h, L, d in levels for b, e in cases}
@@ -1735,6 +1772,7 @@ def _phase2_shapes():
                     | sd21["bfloat16"][0] | sd21["float32"][0]),
             "bwd": (flash(FLASH_LEVELS, BWD_CASES, "bfloat16")
                     | flash(FLASH_LEVELS, F32_BWD_CASES, "float32")
+                    | {(2, OPTIN_HEADS, L, lk, d, "float32") for L, lk, d in F32_OPTIN_BWD}
                     | sd21["bfloat16"][1] | sd21["float32"][1]),
             "sam": ({(bh, g * g, "bfloat16") for bh, g in SAM_CASES}
                     | {(bh, g * g, "float32") for bh, g in F32_SAM_CASES})}
@@ -1746,6 +1784,18 @@ SINGLE_BUNDLES = (
 )
 # backward_guidance's published ladder: 5 iterations a step over 10 steps.
 BG_LADDER = ([5], 10)
+
+
+def _single_plan(name, p):
+    """(guidance ladders, sampling passes, GLIGEN beta) of the single-image
+    method `name` at GroundedParams `p`."""
+    return {
+        "lmd_plus": ([(p.overall_max_iter, p.overall_max_index_step)], 2, 0.4),
+        "lmd": ([(p.max_iter, p.max_index_step),
+                 (p.overall_max_iter, p.overall_max_index_step)], 2, 0.0),
+        "gligen": ([], 1, 0.4),
+        "sd": ([], 1, 0.0),
+        "backward_guidance": ([BG_LADDER], 1, 0.0)}[name]
 
 
 def _run_single(label, name, spec, bundle, segmenter, steps):
@@ -1764,13 +1814,7 @@ def _run_single(label, name, spec, bundle, segmenter, steps):
         kw["segmenter"] = segmenter
     sam = (segmenter.config.encoder_layers * -(-len(spec["gen_boxes"]) // SamSegmenter.CHUNK)
            if name == "lmd" else 0)
-    ladders, passes, beta = {
-        "lmd_plus": ([(p.overall_max_iter, p.overall_max_index_step)], 2, 0.4),
-        "lmd": ([(p.max_iter, p.max_index_step),
-                 (p.overall_max_iter, p.overall_max_index_step)], 2, 0.0),
-        "gligen": ([], 1, 0.4),
-        "sd": ([], 1, 0.0),
-        "backward_guidance": ([BG_LADDER], 1, 0.0)}[name]
+    ladders, passes, beta = _single_plan(name, p)
     method = methods.get_method(name)
     results, launches = _drive(
         label, lambda: [method.run(spec, bundle, **kw)], cfg, steps,
@@ -2833,6 +2877,492 @@ def phase_sd21(steps: int):
     return _sum_launches(all_launches)
 
 
+# ---- phases 13-15: the CLI's opt-in kernels, the webui, training ------------
+
+OPTIN_ENV = ("LMDX_PACKED_ATTENTION", "LMDX_FUSED_HEADS", "LMDX_PALLAS_GROUPNORM")
+
+
+def phase_cli_optin(steps: int):
+    """Phase 13: the stage-2 CLI with the JAX package's three opt-in variables
+    set to "1" (for this phase only): bf16 LMD+ through the batched mode on
+    the first two demo layouts (3 boxes and 1: the per-box pass at UNet batch
+    8, as phase 5's two 2-box layouts), `steps` DDIM steps. Its launches of
+    kernels 3, 4, 2 and 6 must be what phase 5's per-step counts give at this
+    depth (`_optin_expect`), the per-head forward's 0, and every opt-in
+    wrapper shape one phase 2 checked."""
+    import types
+
+    import torch
+
+    from lmdx_torch.config import SD_CONFIGS
+    from lmdx_torch.eval.prompts import PROMPTS_DEMO
+    from lmdx_torch.methods._grounded import GroundedParams
+    from lmdx_torch.sampling.guidance import default_guidance_keys, default_obj_attn_key
+    from lmdx_torch.text.cache import LayoutCache
+
+    t_phase = time.perf_counter()
+    key = "gligen/diffusers-generation-text-box"
+    cfg = SD_CONFIGS[key]()
+    p = GroundedParams(num_inference_steps=steps)
+    per_box_taps = (default_obj_attn_key(cfg.unet), *default_guidance_keys(cfg.unet))
+    saved = {k: os.environ.get(k) for k in OPTIN_ENV}
+    with tempfile.TemporaryDirectory(prefix="lmdx_cli_optin_") as root, \
+            _recording_optin_shapes() as seen:
+        cache_path = os.path.join(root, "cache_demo_v0.1_gpt-4.json")
+        cache = LayoutCache(cache_path)
+        for prompt, response in zip(PROMPTS_DEMO, DEMO_RESPONSES):
+            cache.add(prompt.strip().rstrip("."), response)
+        argv = ["--prompt-type", "demo", "--run-model", "lmd_plus", "--image-batch-size", "2",
+                "--num_prompts", "2", "--cache-path", cache_path, "--save-dir", root,
+                "--force_run_ind", "0", "--num_inference_steps", str(steps),
+                "--no-continue-on-error"]
+        run_dir = os.path.join(root, "templatev0.1_lmd_plus_demo", "run0")
+
+        def run():
+            _cli(argv)
+            return [types.SimpleNamespace(image=_read_png(os.path.join(run_dir, str(i),
+                                                                       "img_0.png")))
+                    for i in range(2)]
+
+        os.environ.update({k: "1" for k in OPTIN_ENV})
+        try:
+            _, launches = _drive(
+                "cli optin", run, cfg, steps,
+                _optin_expect(cfg, steps, 0.4, (p.overall_max_iter, p.overall_max_index_step),
+                              per_box_taps))
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        _check_cli_images("cli optin", run_dir, [0, 1], cfg)
+        _require_optin_shapes("cli optin", seen, "bfloat16")
+    torch.cuda.empty_cache()
+    log(f"cli optin: phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _page_image(body: str, heading: str = "Image"):
+    """The PNG under `<h3>heading</h3>` of a webui page, decoded."""
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    marker = f'<h3>{heading}</h3><img src="data:image/png;base64,'
+    if marker not in body:
+        fail(f"webui: no {heading} image in the page: {body[-1500:]}")
+    start = body.index(marker) + len(marker)
+    with Image.open(io.BytesIO(base64.b64decode(body[start:body.index('"', start)]))) as im:
+        return np.asarray(im)
+
+
+WEBUI_METHODS = (("lmd_plus", 0), ("lmd", 2))  # (method, demo prompt): 3 boxes, 2 boxes
+
+
+def phase_webui(steps: int):
+    """Phase 14: the webui (`lmdx_torch.webui.server`) on the default bundle
+    (SD1.4+GLIGEN, random weights, 512x512) on an ephemeral port in a
+    thread, from a layout cache of the demo prompts in a temporary
+    directory: GET / lists the registry, then two POSTs (`lmd_plus` on a
+    3-box layout, `lmd` on a 2-box one, `steps` DDIM steps) each through
+    `_drive` (images, launches as `_run_single`'s plan implies); each page's
+    image must equal `get_method(m).run` on the same spec and seed, bit for
+    bit. Then SAM's host inputs through a SamSegmenter (ViT-B, random weights,
+    seed 0): a grayscale and an RGBA image (one chunk of 2) and a batch of 4
+    sizes (one chunk of 4, resized to 1024x1024 with PIL's bilinear filter),
+    box-prompted; each must give the masks and IoU of the same pixels
+    converted by hand and handed in as CUDA tensors, and kernel 5 must launch
+    12 times a chunk."""
+    import argparse
+    import threading
+    import types
+    import urllib.parse
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from lmdx_torch import methods
+    from lmdx_torch.eval.prompts import PROMPTS_DEMO
+    from lmdx_torch.methods._grounded import GroundedParams
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
+    from lmdx_torch.nn.kernels import sam_attention as sa
+    from lmdx_torch.nn.sam import SamSegmenter
+    from lmdx_torch.runtime import models
+    from lmdx_torch.webui import server
+
+    t_phase = time.perf_counter()
+    prompts = [p.strip().rstrip(".") for p in PROMPTS_DEMO]  # typed without the period
+    all_launches = {}
+    with tempfile.TemporaryDirectory(prefix="lmdx_webui_") as root, \
+            _recording_shapes() as seen:
+        cache_path = os.path.join(root, "cache_demo_v0.1_gpt-4.json")
+        with open(cache_path, "w") as f:
+            json.dump({p: [r] for p, r in zip(prompts, DEMO_RESPONSES)}, f)
+        args = argparse.Namespace(host="127.0.0.1", port=0,
+                                  sd_model="gligen/diffusers-generation-text-box",
+                                  llm_model="gpt-4", cache_path=cache_path, steps=50, cpu=False)
+        app = server.App(args)
+        server.Handler.app = app
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.Handler)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            with urllib.request.urlopen(url + "/", timeout=60) as r:
+                page = r.read().decode()
+            missing = [m for m in methods.METHODS if f'value="{m}"' not in page]
+            if missing:
+                fail(f"webui: the index page lacks {missing}")
+            t0 = time.perf_counter()
+            bundle = app.bundle()
+            torch.cuda.synchronize()
+            log(f"webui: serving {url}; bundle {args.sd_model} (random weights, seed 0) built "
+                f"in {time.perf_counter() - t0:.1f} s")
+            cfg = bundle.config
+            p = GroundedParams(num_inference_steps=steps)
+            for name, ind in WEBUI_METHODS:
+                seed = 7 + ind
+                form = urllib.parse.urlencode({"prompt": prompts[ind], "method": name,
+                                               "seed": str(seed), "steps": str(steps)}).encode()
+
+                def post(form=form):
+                    with urllib.request.urlopen(url + "/generate", data=form, timeout=600) as r:
+                        body = r.read().decode()
+                    if "Error:" in body:
+                        fail(f"webui {name}: the page reports an error: {body[-3000:]}")
+                    return body
+
+                pages = []
+
+                def run(post=post, pages=pages):
+                    pages.append(post())
+                    return [types.SimpleNamespace(image=_page_image(pages[-1]))]
+
+                ladders, passes, beta = _single_plan(name, p)
+                _, launches = _drive(f"webui {name}", run, cfg, steps,
+                                     _default_expect(cfg, steps, beta, ladders, 0, passes),
+                                     n_passes=passes)
+                all_launches[name] = launches
+                got = _page_image(pages[0])
+                gen_boxes, bg_prompt, neg_prompt = server.App(args).layout(prompts[ind])
+                spec = {"prompt": prompts[ind], "gen_boxes": gen_boxes, "bg_prompt": bg_prompt,
+                        "extra_neg_prompt": neg_prompt}
+                want = methods.get_method(name).run(spec, bundle, bg_seed=seed,
+                                                    num_inference_steps=steps).image
+                if got.shape != want.shape or not (got == want).all():
+                    diff = (np.abs(got.astype(np.int16) - want.astype(np.int16))
+                            if got.shape == want.shape else None)
+                    fail(f"webui {name}: the page's image differs from get_method({name!r}).run "
+                         f"on the same spec and seed ({got.shape} vs {want.shape}; max "
+                         f"|diff| {None if diff is None else diff.max()}, pixels "
+                         f"{None if diff is None else int((diff > 0).sum())})")
+                log(f"webui {name}: the page's {got.shape} image equals get_method({name!r}).run "
+                    f"on the same spec and seed, bit for bit; {len(gen_boxes)} boxes")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        if thread.is_alive():
+            fail("webui: the server thread did not stop")
+        del bundle, app
+        server.Handler.app = None
+        torch.cuda.empty_cache()
+
+        # SAM's host inputs, against the same pixels as CUDA tensors.
+        segmenter = SamSegmenter(models.build_sam(seed=0, device="cuda"))
+        size = segmenter.config.image_size
+        rng = np.random.default_rng(14)
+        base = [rng.integers(0, 255, (512, 512, 3), np.uint8) for _ in range(2)]
+        gray = np.asarray(Image.fromarray(base[0]).convert("L"))
+        rgba = np.concatenate([base[1], rng.integers(0, 255, (512, 512, 1), np.uint8)], -1)
+        mixed = [base[0], np.asarray(Image.fromarray(base[1]).resize((640, 384))),
+                 np.ascontiguousarray(base[1][:480, :320]),
+                 np.asarray(Image.fromarray(base[0]).resize((256, 256)))]
+        cases = (("grayscale + RGBA", [gray, rgba], False), ("mixed sizes", mixed, True))
+        boxes = [[(0.1, 0.1, 0.6, 0.7)], [(0.3, 0.2, 0.9, 0.8)], [(0.0, 0.4, 0.5, 1.0)],
+                 [(0.2, 0.0, 0.7, 0.5)]]
+        sam_launches = {}
+        for label, images, resize in cases:
+            kw = {"input_boxes": boxes[:len(images)], "target_hw": (64, 64)}
+            fa.reset_launch_counts()
+            sa.reset_launch_counts()
+            gn.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = segmenter.segment_batch(images, **kw)
+            wall = time.perf_counter() - t0
+            launches = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+            chunks = -(-len(images) // SamSegmenter.CHUNK)
+            want_n = segmenter.config.encoder_layers * chunks
+            if launches["sam_attention"] != want_n or any(
+                    v for k, v in launches.items() if k != "sam_attention"):
+                fail(f"webui sam {label}: launches {launches}, expected {want_n} of "
+                     f"sam_attention and nothing else")
+            sam_launches[label] = launches
+            ref = []
+            for im in images:
+                pil = Image.fromarray(im).convert("RGB")
+                if resize:
+                    pil = pil.resize((size, size), Image.BILINEAR)
+                ref.append(torch.from_numpy(np.array(pil, np.uint8)).cuda())
+            want = segmenter.segment_batch(ref, **kw)
+            for i, ((gm, gi), (wm, wi)) in enumerate(zip(got, want)):
+                if gm.shape != (3, 64, 64) or not (gm == wm).all() or not (gi == wi).all():
+                    fail(f"webui sam {label}: image {i}'s masks or IoU differ from the same "
+                         f"pixels handed in as CUDA tensors (IoU {gi} vs {wi})")
+            log(f"webui sam {label}: {[im.shape for im in images]} -> {len(got)} masks equal "
+                f"to the hand-converted tensors' in {wall:.3f} s; launches {launches}; mask "
+                f"areas {[int(m.sum()) for m, _ in got]}")
+        all_launches["sam"] = {k: sum(v[k] for v in sam_launches.values())
+                               for k in all_launches["lmd"]}
+        del segmenter
+        torch.cuda.empty_cache()
+    _require_checked_shapes("webui", seen)
+    log(f"webui: phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return _sum_launches(all_launches)
+
+
+TRAIN_BF16_STEPS = 5
+TRAIN_F32_STEPS = 3
+TOL_TRAIN_LOSS = 2e-2  # bf16 first-step loss against float32's, relative
+TRAIN_GATES = (0.7, -0.4)  # tanh gates of the fusers (alpha_attn, alpha_dense)
+
+
+def _train_batch(key: str):
+    """Phase 15's batch on the full-width bundle's towers (random weights,
+    seed 0): SPECS' two prompts through CLIP, their boxes' grounding tokens
+    through PositionNet (the conditional half of `make_gligen_inputs`),
+    seeded 64x64x4 latents and noise, timesteps 100 and 700."""
+    import torch
+
+    from lmdx_torch.methods import base
+    from lmdx_torch.runtime import models
+
+    bundle = models.load_bundle(key, seed=0, device="cuda")
+    text = models.encode_text(bundle, [s["prompt"] for s in SPECS])[0]
+    objs = []
+    for spec in SPECS:
+        boxes = [(x / 512, y / 512, (x + w) / 512, (y + h) / 512)
+                 for _, (x, y, w, h) in spec["gen_boxes"]]
+        full, _ = base.make_gligen_inputs(bundle, boxes, [n for n, _ in spec["gen_boxes"]])
+        objs.append(full[1:])
+    h = bundle.config.latent_height
+    del bundle
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    batch = {"x0": torch.randn((len(SPECS), h, h, 4), generator=gen, device="cuda"),
+             "noise": torch.randn((len(SPECS), h, h, 4), generator=gen, device="cuda"),
+             "t": torch.tensor([100, 700], device="cuda"),
+             "text_embeddings": text, "objs": torch.cat(objs).float()}
+    if not all(bool(torch.isfinite(v.float()).all()) for v in batch.values()):
+        fail("train: non-finite batch")
+    log(f"train: batch {({k: tuple(v.shape) for k, v in batch.items()})}, objs |max| "
+        f"{float(batch['objs'].abs().max()):.3f}")
+    return batch
+
+
+def phase_train():
+    """Phase 15: the GLIGEN adapter training step (`lmdx_torch.training`) on the
+    full-width SD1.4+GLIGEN UNet (random weights, seed 0, every fuser's gates
+    opened to TRAIN_GATES), 512x512 latents at batch 2 (`_train_batch`), the
+    adapter mask (the fusers train, the backbone is frozen), AdamW at lr
+    1e-4. (a) TRAIN_F32_STEPS float32 steps on a UNet built for float32
+    (kernels 1-f32 and 2-f32, TF32 off); (b) TRAIN_BF16_STEPS bf16 steps on
+    one built for bf16 from the same seed (float32 masters cast at each use;
+    kernels 1 and 2). Checks: every loss finite; the first bf16 loss within
+    TOL_TRAIN_LOSS of the first float32 loss (same state and batch); the
+    frozen parameters bit for bit unchanged and every adapter parameter
+    changed; the launches of each step exactly the dispatch's: a forward for
+    each flash layer (the 15 self-attentions and 15 fusers at >= 256 tokens)
+    and a backward for each but the first block's self-attention (its inputs
+    need no gradient: the first trained parameter follows it); every shape
+    one phase 2 checked. (c) `checkpoint.save` of the bf16 state, one more
+    step, `restore`: parameters, moments and step bit for bit the saved ones.
+    (d) One step under `utils.trace.trace` with `annotate("train_step")`: the
+    trace file holds the span and both kernels' events. Prints each mode's
+    step wall and peak memory."""
+    import dataclasses
+
+    import torch
+
+    from lmdx_torch.config import SD_CONFIGS
+    from lmdx_torch.core.schedule import make_alphas_cumprod
+    from lmdx_torch.nn.attention import GatedSelfAttention
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
+    from lmdx_torch.nn.kernels import sam_attention as sa
+    from lmdx_torch.runtime import models
+    from lmdx_torch.training import checkpoint, train
+    from lmdx_torch.utils import trace as tracelib
+
+    t_phase = time.perf_counter()
+    key = "gligen/diffusers-generation-text-box"
+    cfg = SD_CONFIGS[key]()
+    alphas = make_alphas_cumprod()
+    fwd_per_step = _expected_launches(cfg, 1, 1.0, [], passes=1)[0]
+    bwd_per_step = fwd_per_step - 1
+    all_launches, losses, walls = {}, {}, {}
+    with _recording_shapes() as seen:
+        batch = _train_batch(key)
+
+        def build(dtype_name):
+            unet = models.build_train_unet(dataclasses.replace(cfg, dtype=dtype_name), seed=0,
+                                           device="cuda")
+            with torch.no_grad():
+                for m in unet.modules():
+                    if isinstance(m, GatedSelfAttention):
+                        m.alpha_attn.fill_(TRAIN_GATES[0])
+                        m.alpha_dense.fill_(TRAIN_GATES[1])
+            opt = train.make_optimizer(1e-4, trainable_mask=train.gligen_adapter_mask(unet))
+            step = train.make_train_step(unet, opt, alphas,
+                                         objs_fn=lambda _, b: b["objs"],
+                                         dtype=getattr(torch, dtype_name))
+            return unet, opt, step
+
+        def run_steps(label, step, state, n, suffix):
+            fa.reset_launch_counts()
+            sa.reset_launch_counts()
+            gn.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            out, t_steps = [], []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, batch)
+                torch.cuda.synchronize()
+                t_steps.append(time.perf_counter() - t0)
+                out.append(float(loss))
+            launches = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+            want = {k: 0 for k in launches}
+            want[f"flash_attention_fwd{suffix}"] = n * fwd_per_step
+            want[f"flash_attention_bwd{suffix}"] = n * bwd_per_step
+            if launches != want:
+                fail(f"{label}: launches {launches}, expected {want} ({fwd_per_step} forwards "
+                     f"and {bwd_per_step} backwards a step)")
+            if not all(math.isfinite(x) for x in out):
+                fail(f"{label}: non-finite loss {out}")
+            log(f"{label}: {n} steps, losses {out}; step walls {[f'{t:.3f}' for t in t_steps]} "
+                f"s (the first with the step's set-up), peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {want}")
+            return state, out, t_steps, launches
+
+        # (a) float32.
+        t0 = time.perf_counter()
+        unet, opt, step = build("float32")
+        log(f"train f32: UNet built (float32 parameters, seed 0) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        state = train.init_train_state(unet, opt)
+        if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32):
+            fail("train f32: TF32 is on")
+        _, losses["f32"], walls["f32"], all_launches["f32"] = run_steps(
+            "train f32", step, state, TRAIN_F32_STEPS, "_f32")
+        del unet, opt, step, state
+        torch.cuda.empty_cache()
+
+        # (b) bf16 activations over float32 masters.
+        t0 = time.perf_counter()
+        unet, opt, step = build("bfloat16")
+        mask = train.gligen_adapter_mask(unet)
+        named = dict(unet.named_parameters())
+        # On the host, so that the steps' peak memory is the training's own.
+        before = {n: p.detach().cpu() for n, p in named.items()}
+        n_adapter = sum(mask.values())
+        log(f"train bf16: UNet built in {time.perf_counter() - t0:.1f} s; "
+            f"{sum(p.numel() for n, p in named.items() if mask[n]) / 1e6:.1f}M adapter "
+            f"parameters in {n_adapter} tensors, "
+            f"{sum(p.numel() for n, p in named.items() if not mask[n]) / 1e6:.1f}M frozen")
+        state = train.init_train_state(unet, opt)
+        state, losses["bf16"], walls["bf16"], all_launches["bf16"] = run_steps(
+            "train bf16", step, state, TRAIN_BF16_STEPS, "")
+        l16, l32 = losses["bf16"][0], losses["f32"][0]
+        share = abs(l16 - l32) / abs(l32)
+        if share > TOL_TRAIN_LOSS:
+            fail(f"train: first bf16 loss {l16} vs float32 {l32}: {share:.2e} > "
+                 f"{TOL_TRAIN_LOSS}")
+        unchanged = [n for n, p in named.items()
+                     if mask[n] and torch.equal(p.detach().cpu(), before[n])]
+        moved = [n for n, p in named.items()
+                 if not mask[n] and not torch.equal(p.detach().cpu(), before[n])]
+        if unchanged or moved:
+            fail(f"train bf16: adapter parameters unchanged {unchanged[:5]} ({len(unchanged)}), "
+                 f"frozen parameters changed {moved[:5]} ({len(moved)})")
+        log(f"train: first loss bf16 {l16} vs float32 {l32} ({share:.2e} of it, within "
+            f"{TOL_TRAIN_LOSS}); all {n_adapter} adapter tensors changed, "
+            f"{len(named) - n_adapter} frozen ones bit for bit unchanged")
+        del before
+
+        # (c) the checkpoint round trip.
+        with tempfile.TemporaryDirectory(prefix="lmdx_train_ckpt_") as root:
+            path = os.path.join(root, f"step_{state.step}")
+            t0 = time.perf_counter()
+            checkpoint.save(path, state)
+            t_save = time.perf_counter() - t0
+            nbytes = _dir_bytes(path)
+            saved_params = {n: p.detach().clone() for n, p in named.items()}
+            saved_moments = {n: {k: torch.as_tensor(v).clone() for k, v in
+                                 state.opt_state.state[p].items()}
+                             for n, p in named.items() if mask[n]}
+            saved_step = state.step
+            state, loss_after, _, launches = run_steps("train bf16 +1", step, state, 1, "")
+            all_launches["bf16 +1"] = launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = checkpoint.restore(path, state)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            if checkpoint.latest_step_dir(root) != path:
+                fail(f"train: latest_step_dir({root}) is not {path}")
+        bad = [n for n, p in named.items() if not torch.equal(p, saved_params[n])]
+        bad += [f"{n}.{k}" for n, m in saved_moments.items()
+                for k, v in m.items() if not torch.equal(
+                    torch.as_tensor(state.opt_state.state[named[n]][k]), v)]
+        if bad or state.step != saved_step:
+            fail(f"train: restore differs from the saved state: {bad[:5]} ({len(bad)}), step "
+                 f"{state.step} vs {saved_step}")
+        log(f"train: checkpoint of {nbytes / 1e9:.2f} GB saved in {t_save:.1f} s and restored "
+            f"in {t_restore:.1f} s, bit for bit ({len(named)} parameters, "
+            f"{len(saved_moments)} x 3 moments, step {saved_step}) after a step that moved "
+            f"them (loss {loss_after})")
+        del saved_params, saved_moments
+
+        # (d) one step traced.
+        with tempfile.TemporaryDirectory(prefix="lmdx_train_trace_") as root:
+            fa.reset_launch_counts()
+            with tracelib.trace(root) as log_dir:
+                with tracelib.annotate("train_step"):
+                    state, loss = step(state, batch)
+            launches = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+            all_launches["bf16 traced"] = launches
+            files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+            if len(files) != 1:
+                fail(f"train trace: {files} in {log_dir}")
+            with open(os.path.join(log_dir, files[0])) as f:
+                events = json.load(f)["traceEvents"]
+            names = [e.get("name", "") for e in events]
+            counts = {what: sum(what in n for n in names)
+                      for what in ("train_step", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                   "flash_bwd_dkdv_kernel")}
+            if min(counts.values()) < 1:
+                fail(f"train trace: events {counts}: the span or a kernel is missing (the step "
+                     f"launched {fwd_per_step} forwards and {bwd_per_step} backwards)")
+            log(f"train trace: {os.path.getsize(os.path.join(log_dir, files[0])) / 1e6:.1f} MB "
+                f"Chrome trace, {len(events)} events: {counts}; loss {float(loss)}")
+        del unet, opt, step, state, named
+        torch.cuda.empty_cache()
+    _require_checked_shapes("train", seen, required=("fwd", "bwd"))
+    bf16_steady = sorted(walls["bf16"][1:])[len(walls["bf16"][1:]) // 2]
+    f32_steady = sorted(walls["f32"][1:])[len(walls["f32"][1:]) // 2]
+    log(f"train: median step wall after the first: bf16 {bf16_steady:.3f} s, float32 "
+        f"{f32_steady:.3f} s (batch 2, 512x512)")
+    log(f"train: phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return _sum_launches(all_launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -2858,8 +3388,9 @@ def main() -> None:
                          "rehearsal flag: the check is the 50 steps of the default)")
     ap.add_argument("--cli-steps", type=int, default=20,
                     help="DDIM steps of phase 9's batched bf16 LMD+, of phase 11's LMD+ "
-                         "before the refiner and of phase 12's LMD on SD2.1, through the CLI "
-                         "(depth only: phases 3 and 4 run the same work on SD1.x at 50 "
+                         "before the refiner, of phase 12's LMD on SD2.1 and of phase "
+                         "13's opt-in LMD+, through the CLI, and of phase 14's webui "
+                         "requests (depth only: phases 3-6 run the same work at 50 "
                          "steps; the refiners' 15 steps are not cut)")
     ap.add_argument("--optin-f32-steps", type=int, default=50,
                     help="DDIM steps of phase 10's float32 LMD+ with every opt-in kernel "
@@ -2917,14 +3448,18 @@ def main() -> None:
         phase_owlvit(run_dir, len(ATTRIBUTION_RESPONSES))
     sdxl = phase_sdxl(args.cli_steps)
     sd21 = phase_sd21(args.cli_steps)
-    launches = {name: plus[name] + lmd[name] + optin[name] + single[name] + baselines[name]
-                + checkpoint[name] + cli[name] + optin_f32[name] + sdxl[name] + sd21[name]
-                for name in kernels}
+    cli_optin = phase_cli_optin(args.cli_steps)
+    webui = phase_webui(args.cli_steps)
+    training = phase_train()
+    runs = (plus, lmd, optin, single, baselines, checkpoint, cli, optin_f32, sdxl, sd21,
+            cli_optin, webui, training)
+    launches = {name: sum(run[name] for run in runs) for name in kernels}
     log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
         f"single-image methods {single}, baselines and solvers {baselines}, "
         f"checkpoint path {checkpoint}, CLI {cli}, float32 opt-in LMD+ path {optin_f32}, "
         f"SDXL refiner through the CLI {sdxl}, SD2.1 and the SDXL base through the CLI "
-        f"{sd21}")
+        f"{sd21}, the CLI's opt-in kernels {cli_optin}, the webui {webui}, training "
+        f"{training}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -2975,8 +3510,9 @@ def main() -> None:
         f"forward, {len(F32_FUSED_CASES) * n_opt} for the float32 fused-heads forward); "
         f"launches are those of the LMD+, LMD and opt-in LMD+ paths, the single-image "
         f"methods, the baselines and solvers, the checkpoint path, the CLI, the "
-        f"float32 opt-in LMD+ path, the SDXL refiner through the CLI and SD2.1 with the "
-        f"SDXL base through the CLI together")
+        f"float32 opt-in LMD+ path, the SDXL refiner through the CLI, SD2.1 with the "
+        f"SDXL base through the CLI, the CLI with the opt-in variables, the webui and "
+        f"the training steps together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -14,7 +14,14 @@ loads it in float32, the reference's no-autocast configuration (LMD's
 published one), on the float32 attention kernels, and turns TF32 off for
 matmuls and cuDNN's convolutions (`torch.backends.cuda.matmul.allow_tf32`,
 `torch.backends.cudnn.allow_tf32`; cuDNN's default is TF32), so that every
-product is full float32.
+product is full float32 (`runtime/precision.py`; `load_bundle` does the same
+for any float32 bundle).
+
+Opt-in kernels: LMDX_PACKED_ATTENTION, LMDX_FUSED_HEADS and
+LMDX_PALLAS_GROUPNORM, the JAX package's switches, set to "1" choose the
+head-packed forward, the fused-heads forward and the `pair_stats`
+GroupNorm; the CLI reads them (`config.kernel_options_from_env`) and builds
+its bundle with that `KernelOptions`.
 
 Two flags of the JAX CLI bound XLA compiles; an eager program compiles
 nothing, and both keep the JAX plan without changing an image:
@@ -39,10 +46,11 @@ weights. LMDX_REFINER_MODEL names another configuration: the SDXL base
 one.
 
 Refused, with the ROADMAP item that holds them: `--mesh` (`dist/`, not
-ported: section 1 item 10) and an SDXL `--sd-model` key (item 6: an SDXL
-configuration serves only as the `--sdxl` refiner; its UNet needs text_time
-conditioning, which no stage-2 method passes, as in the JAX package). JAX's
-compile cache and multi-host start have no counterpart.
+ported: section 1 item 10, the dist slice) and an SDXL `--sd-model` key
+(item 6: an SDXL configuration serves only as the `--sdxl` refiner; its
+UNet needs text_time conditioning, which no stage-2 method passes, as in
+the JAX package). JAX's compile cache and multi-host start have no
+counterpart.
 
 Example (offline, cached layouts, the CPU and the tiny test model):
     python -m lmdx_torch.cli.generate --cpu --sd-model tiny-test \\
@@ -59,13 +67,13 @@ import os
 import time
 import traceback
 
-import torch
 from PIL import Image
 
 from .. import methods as methods_lib
-from ..config import SD_CONFIGS
+from ..config import SD_CONFIGS, kernel_options_from_env
 from ..eval.prompts import get_prompts
 from ..methods import base as method_base
+from ..runtime.precision import set_full_f32
 from ..text.cache import LayoutCache, cache_filename
 from ..text.parser import ParseError, filter_boxes, parse_layout_response
 
@@ -91,8 +99,8 @@ STR_ARGS = ["so_vertical_placement"]
 BOOL_INT_ARGS = {"horizontal_shift_only", "so_horizontal_center_only",
                  "use_ref_ca", "use_fast_schedule"}
 
-NOT_PORTED_MESH = ("--mesh: device-mesh sharding (dist/) is not ported yet "
-                   "(ROADMAP.md section 1 item 10)")
+NOT_PORTED_MESH = ("--mesh: device-mesh sharding (dist/mesh.py, dist/serve.py) is not "
+                   "ported yet (ROADMAP.md section 1 item 10, the dist slice)")
 SDXL_STAGE2 = ("an SDXL configuration serves only as the --sdxl refiner: its UNet "
                "needs text_time conditioning, which no stage-2 method passes "
                "(ROADMAP.md section 1 item 6)")
@@ -142,7 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "nothing else runs; no image changes")
     parser.add_argument("--mesh", default=None,
                         help="not ported: device-mesh sharding (dist/, "
-                             "ROADMAP.md section 1 item 10); refused")
+                             "ROADMAP.md section 1 item 10, the dist slice); refused")
     parser.add_argument("--use-sdv2", action="store_true",
                         help="run on SD2.1 base (stabilityai/stable-diffusion-2-1-base); "
                              "GLIGEN methods need SD1.4")
@@ -265,18 +273,6 @@ def make_save_dir(args) -> str:
     return f"{base}/run{run_ind}"
 
 
-def set_full_f32() -> None:
-    """No TF32 anywhere: float32 matmuls and cuDNN convolutions in full
-    float32 (cuDNN's default is TF32)."""
-    import torch
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"full f32: torch.backends.cuda.matmul.allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="
-          f"{torch.backends.cudnn.allow_tf32}")
-
-
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -305,10 +301,11 @@ def main(argv=None) -> int:
         from ..runtime import models
 
         if args.use_autocast == 0:
-            set_full_f32()
+            print(set_full_f32())
         bundle = models.load_bundle(
             select_model_key(args),
-            dtype="float32" if args.use_autocast == 0 else None, device=device)
+            dtype="float32" if args.use_autocast == 0 else None, device=device,
+            kernels=kernel_options_from_env())
         sam_checkpoint = args.sam_checkpoint or models.discover_sam_checkpoint()
         if sam_checkpoint:
             print(f"SAM segmenter: {sam_checkpoint}"

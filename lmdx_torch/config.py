@@ -11,6 +11,7 @@ model) and the tiny CPU-test configs (`tiny-test`, `tiny-sdxl`,
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import torch
@@ -37,6 +38,21 @@ class KernelOptions:
 
 ALL_KERNELS = KernelOptions(packed_attention=True, fused_heads=True,
                             fused_group_norm=True)
+
+# The JAX package's switches of the three opt-in kernels, by field; each is
+# on when its variable is exactly "1", as the JAX package reads it.
+KERNEL_ENV = {"packed_attention": "LMDX_PACKED_ATTENTION",
+              "fused_heads": "LMDX_FUSED_HEADS",
+              "fused_group_norm": "LMDX_PALLAS_GROUPNORM"}
+
+
+def kernel_options_from_env() -> KernelOptions:
+    """The `KernelOptions` that the JAX package's variables ask for
+    (`KERNEL_ENV`). Only entry points call it (the stage-2 CLI and the
+    webui), and hand the result to `load_bundle(kernels=...)`; no module
+    below them reads the environment."""
+    return KernelOptions(**{field_name: os.environ.get(var, "0") == "1"
+                            for field_name, var in KERNEL_ENV.items()})
 
 
 @dataclass(frozen=True)

@@ -430,6 +430,16 @@ def postprocess_masks(masks, size: int, oh: int, ow: int, th: int, tw: int):
     return _bilinear(orig, th, tw) != 0.0
 
 
+def _host_rgb(image) -> np.ndarray:
+    """A host image (numpy, PIL, or a tensor copied back) as HxWx3 uint8 RGB,
+    through PIL as the JAX segmenter converts it."""
+    from PIL import Image
+
+    if torch.is_tensor(image):
+        image = image.cpu().numpy()
+    return np.asarray(Image.fromarray(np.asarray(image)).convert("RGB"), np.uint8)
+
+
 class SamSegmenter:
     """masking.Segmenter backed by the port's SAM (`runtime.models.build_sam`).
 
@@ -439,8 +449,15 @@ class SamSegmenter:
     `jax.image.resize` antialiases only on a downscale, which no path does.
     The JAX side also pads each chunk to a power of two to bound its XLA
     compiles; the port runs the real rows only, which the batch-independent
-    forward leaves unchanged. Images are HxWx3 uint8, host numpy arrays or
-    tensors on the model's device, all of one size (no host resizer).
+    forward leaves unchanged.
+
+    Images are taken chunk by chunk by the JAX segmenter's rule. A chunk of
+    tensors (the pipelines' decoded images, on the model's device) must be
+    HxWx3 uint8 of one size, and goes up as it is. Any other chunk is host
+    input: each image becomes RGB uint8 through PIL (`.convert("RGB")`:
+    grayscale, RGBA and the other modes PIL reads), and a chunk whose sizes
+    differ is resized to the model size with PIL's bilinear filter, after
+    which the boxes are placed and the masks taken at that size.
     """
 
     CHUNK = 4
@@ -469,11 +486,10 @@ class SamSegmenter:
             raise ValueError("need exactly one of input_points and input_boxes")
         if not images:
             return []
-        pixels = self._pixels(images)
         chunks = []
         for s in range(0, len(images), self.CHUNK):
             chunks.append(self._segment_chunk(
-                pixels[s:s + self.CHUNK],
+                self._pixels(images[s:s + self.CHUNK]),
                 None if input_points is None else input_points[s:s + self.CHUNK],
                 None if input_boxes is None else input_boxes[s:s + self.CHUNK],
                 target_hw))
@@ -482,17 +498,25 @@ class SamSegmenter:
         return [(masks[i], iou[i]) for i in range(len(images))]
 
     def _pixels(self, images) -> torch.Tensor:
-        shapes = {tuple(im.shape) for im in images}
-        if len(shapes) > 1:
-            raise ValueError(f"images of one batch must share one size, got {shapes}")
-        (shape,) = shapes
-        if len(shape) != 3 or shape[2] != 3:
-            raise ValueError(f"images must be HxWx3, got {shape}")
-        tensors = [im if torch.is_tensor(im) else torch.from_numpy(np.asarray(im))
-                   for im in images]
-        if any(t.dtype != torch.uint8 for t in tensors):
-            raise ValueError("images must be uint8")
-        return torch.stack([t.to(self.device) for t in tensors])
+        """One chunk of images -> (n, H, W, 3) uint8 on the model's device."""
+        if all(torch.is_tensor(im) for im in images):
+            shapes = {tuple(im.shape) for im in images}
+            if len(shapes) > 1:
+                raise ValueError(f"a batch of tensors must share one size, got {shapes}")
+            (shape,) = shapes
+            if len(shape) != 3 or shape[2] != 3:
+                raise ValueError(f"tensor images must be HxWx3, got {shape}")
+            if any(im.dtype != torch.uint8 for im in images):
+                raise ValueError("tensor images must be uint8")
+            return torch.stack([im.to(self.device) for im in images])
+        arrs = [_host_rgb(im) for im in images]
+        if len({a.shape for a in arrs}) > 1:
+            from PIL import Image
+
+            size = self.config.image_size
+            arrs = [np.asarray(Image.fromarray(a).resize((size, size), Image.BILINEAR),
+                               np.uint8) for a in arrs]
+        return torch.from_numpy(np.stack(arrs)).to(self.device)
 
     def _segment_chunk(self, pixels, input_points, input_boxes, target_hw):
         n, oh, ow = pixels.shape[:3]

@@ -15,6 +15,9 @@ every parameter whose name contains "norm" in f32. Weights from a state dict
 go into modules built on the `meta` device, one tensor at a time: placed on
 the device, cast there, assigned; nothing is allocated twice.
 
+`build_train_unet` builds the UNet alone with float32 parameters, for the
+training step (`training/train.py`).
+
 `build_sam` builds the SAM segmenter's network the same way (random weights
 from a seed, or a state dict with transformers `SamModel` key names);
 `load_segmenter` reads it from a checkpoint directory. `build_owlvit` does
@@ -40,6 +43,7 @@ from ..nn.unet import PositionNet, UNet2DCondition
 from ..nn.vae import ENCODE_HALF, AutoencoderKL
 from ..text import tokens as toklib
 from . import convert
+from .precision import set_full_f32
 
 F32_PARAM_NAME_MARKERS = ("norm",)
 
@@ -190,6 +194,25 @@ def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 
                        device=device, checkpoint_dir=checkpoint_dir, text_encoder_2=text2)
 
 
+def build_train_unet(config: SDConfig, state_dict: dict | None = None, seed: int = 0,
+                     device=None, kernels: KernelOptions | None = None) -> UNet2DCondition:
+    """The UNet of `config` for training (`training/train.py`): built for the
+    config's compute dtype, every parameter kept in float32 (the masters; no
+    `cast_for_inference`), in train mode with gradients on. From a state dict
+    (any dtype, on the host) or, when None, seeded random weights drawn as
+    `build_bundle` draws them: the UNet comes first in its order, so the same
+    seed gives the bundle's UNet before the cast."""
+    device = resolve_device(device)
+    with torch.device(device if state_dict is None else "meta"):
+        unet = UNet2DCondition(config.unet, dtype=config.torch_dtype(),
+                               kernels=kernels or KernelOptions())
+    if state_dict is None:
+        _random_init(unet.named_parameters(), torch.Generator(device=device).manual_seed(seed))
+    else:
+        _assign(unet, state_dict, device, lambda name: torch.float32)
+    return unet.train().requires_grad_(True)
+
+
 def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
                 checkpoint_dir: str | None = None, seed: int = 0, dtype: str | None = None,
                 *, device=None, kernels: KernelOptions | None = None) -> ModelBundle:
@@ -210,11 +233,15 @@ def load_bundle(model_key: str = "gligen/diffusers-generation-text-box",
     reference's no-autocast precision, the one published for training-free
     LMD. On a card every attention kernel, the opt-in ones included, exists
     for bfloat16 and float32; any other dtype there is refused here, before
-    the load, not in the middle of a run."""
+    the load, not in the middle of a run. A float32 bundle turns TF32 off
+    (`precision.set_full_f32`), as the JAX package's float32 function has
+    none."""
     config = SD_CONFIGS[model_key]()
     if dtype is not None:
         config = dataclasses.replace(config, dtype=dtype)
     device = resolve_device(device)
+    if config.torch_dtype() == torch.float32:
+        set_full_f32()
     if device.type == "cuda":
         torch_dtype = config.torch_dtype()
         if torch_dtype not in (torch.bfloat16, torch.float32):
@@ -326,8 +353,11 @@ def build_owlvit(config: OwlViTConfig | None = None, state_dict: dict | None = N
     a state dict with transformers `OwlViTForObjectDetection` key names
     (`convert.load_owlvit_state_dict`) or, when None, seeded random weights
     drawn from an explicit generator: weights ~ N(0, 1/fan_in), biases 0,
-    norm scales 1, the class, position and token embeddings N(0, 0.02^2)."""
+    norm scales 1, the class, position and token embeddings N(0, 0.02^2).
+    Being float32, it turns TF32 off (`precision.set_full_f32`): its patch
+    embedding is a convolution."""
     device = resolve_device(device)
+    set_full_f32()
     config = config or owlvit_base_patch32()
     with torch.device(device if state_dict is None else "meta"):
         model = OwlViT(config)

@@ -241,7 +241,9 @@ def test_main_makes_the_same_calls(argv, cache_path, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--mesh", "auto"], "item 10"),
+    # Training is ported (tests/test_torch_training.py); --mesh stays refused
+    # and cites the dist half of item 10 alone.
+    (["--mesh", "auto"], "item 10, the dist slice"),
     # --sdxl is ported (tests/test_torch_sdxl_refiner.py); an SDXL key as the
     # stage-2 model stays refused.
     (["--sd-model", "stabilityai/stable-diffusion-xl-refiner-1.0"], "item 6"),

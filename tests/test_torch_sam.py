@@ -136,9 +136,14 @@ def test_segment_batch_matches_flax_segmenter(tiny, prompt):
 
 
 def test_segmenter_rejects_mixed_sizes(tiny):
+    """A batch of tensors (the pipelines' decoded images, on the model's
+    device) of mixed sizes is refused, as the JAX segmenter refuses device
+    arrays; host images of mixed sizes are resized by the JAX rule
+    (tests/test_torch_entry_points.py)."""
     model, _, _ = tiny
     seg = tsam.SamSegmenter(model)
-    images = [np.zeros((32, 32, 3), np.uint8), np.zeros((16, 32, 3), np.uint8)]
+    images = [torch.zeros((32, 32, 3), dtype=torch.uint8),
+              torch.zeros((16, 32, 3), dtype=torch.uint8)]
     with pytest.raises(ValueError):
         seg.segment_batch(images, input_boxes=BOXES[:2], target_hw=(16, 16))
 

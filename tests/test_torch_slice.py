@@ -88,8 +88,14 @@ CHECKPOINT_AND_STAGE_ONE = [
     "lmdx_torch.cli.prompt_batch", "lmdx_torch.cli.eval_stage_one"]
 
 
+# Modules of the host entry points and the training slice.
+HOST_AND_TRAINING = [
+    "lmdx_torch.runtime.precision", "lmdx_torch.webui.server", "lmdx_torch.utils.trace",
+    "lmdx_torch.training", "lmdx_torch.training.train", "lmdx_torch.training.checkpoint"]
+
+
 def test_port_imports_no_jax_and_nothing_of_lmdx():
-    assert set(CHECKPOINT_AND_STAGE_ONE) <= set(_port_modules())
+    assert set(CHECKPOINT_AND_STAGE_ONE + HOST_AND_TRAINING) <= set(_port_modules())
     code = ("import sys\n"
             "sys.modules['jax'] = None\nsys.modules['flax'] = None\n"
             "sys.modules['lmdx'] = None\n"

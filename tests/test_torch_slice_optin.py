@@ -209,9 +209,18 @@ def test_port_kernel_modules_import_no_jax_and_read_no_kernel_switch():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    # One function reads the JAX package's switches (config.py's
+    # kernel_options_from_env), and only the entry points call it: the stage-2
+    # CLI and the webui.
+    reader = REPO / "lmdx_torch" / "config.py"
+    callers = []
     for path in (REPO / "lmdx_torch").rglob("*.py"):
         text = path.read_text()
-        for switch in ("LMDX_PACKED_ATTENTION", "LMDX_FUSED_HEADS", "LMDX_PALLAS_GROUPNORM"):
-            assert f'"{switch}"' not in text and f"'{switch}'" not in text, path
+        if path != reader:
+            for switch in ("LMDX_PACKED_ATTENTION", "LMDX_FUSED_HEADS", "LMDX_PALLAS_GROUPNORM"):
+                assert f'"{switch}"' not in text and f"'{switch}'" not in text, path
+            if "kernel_options_from_env(" in text:
+                callers.append(path.relative_to(REPO).as_posix())
         if "kernels" in path.parts and path.name != "build.py":
             assert "os.environ" not in text, path
+    assert sorted(callers) == ["lmdx_torch/cli/generate.py", "lmdx_torch/webui/server.py"]

@@ -263,9 +263,13 @@ phase 12 a fabricated SD2.1 base, SDXL base and SAM.
    opened to 0.7 / -0.4), float32 parameters and AdamW state (lr 1e-4, the
    adapter mask), batch 2 at 512x512: SPECS' prompts through CLIP, their
    boxes' grounding tokens through PositionNet, seeded latents and noise.
-   (a) 3 float32 steps (kernels 1-f32, 2-f32); (b) 5 bf16 steps from the
-   same weights (kernels 1, 2). Every loss finite; the first bf16 loss within
-   2e-2 of the first float32 one; frozen parameters bit for bit unchanged,
+   (a) 3 float32 steps (kernels 1-f32, 2-f32; TF32, turned on just before,
+   is off once the step is built); (b) 5 bf16 steps from the same weights
+   (kernels 1, 2). Every loss finite; the first bf16 loss within 2e-2 of the
+   first float32 one, and each adapter tensor's first bf16 gradient (the 32
+   scalar gates as one vector) within 0.1 of its float32 one (||g16 - g32|| /
+   ||g32||); frozen
+   parameters bit for bit unchanged,
    every adapter parameter changed; each step 30 forward launches (15
    self-attentions and 15 fusers at >= 256 tokens) and 29 backward ones
    (all but the first self-attention, before the first trained parameter);
@@ -3131,6 +3135,7 @@ def phase_webui(steps: int):
 TRAIN_BF16_STEPS = 5
 TRAIN_F32_STEPS = 3
 TOL_TRAIN_LOSS = 2e-2  # bf16 first-step loss against float32's, relative
+TOL_TRAIN_GRAD = 0.1  # bf16 first-step gradient against float32's, each tensor's norm
 TRAIN_GATES = (0.7, -0.4)  # tanh gates of the fusers (alpha_attn, alpha_dense)
 
 
@@ -3172,10 +3177,13 @@ def phase_train():
     opened to TRAIN_GATES), 512x512 latents at batch 2 (`_train_batch`), the
     adapter mask (the fusers train, the backbone is frozen), AdamW at lr
     1e-4. (a) TRAIN_F32_STEPS float32 steps on a UNet built for float32
-    (kernels 1-f32 and 2-f32, TF32 off); (b) TRAIN_BF16_STEPS bf16 steps on
-    one built for bf16 from the same seed (float32 masters cast at each use;
-    kernels 1 and 2). Checks: every loss finite; the first bf16 loss within
-    TOL_TRAIN_LOSS of the first float32 loss (same state and batch); the
+    (kernels 1-f32 and 2-f32; TF32 is turned on before the step is built,
+    which must turn it off); (b) TRAIN_BF16_STEPS bf16 steps on one built
+    for bf16 from the same seed (float32 masters cast at each use; kernels 1
+    and 2). Checks: every loss finite; the first bf16 loss within
+    TOL_TRAIN_LOSS of the first float32 loss (same state and batch), each
+    adapter tensor's first bf16 gradient (the scalar gates as one vector)
+    within TOL_TRAIN_GRAD of the float32 one, relative to its norm; the
     frozen parameters bit for bit unchanged and every adapter parameter
     changed; the launches of each step exactly the dispatch's: a forward for
     each flash layer (the 15 self-attentions and 15 fusers at >= 256 tokens)
@@ -3206,7 +3214,7 @@ def phase_train():
     alphas = make_alphas_cumprod()
     fwd_per_step = _expected_launches(cfg, 1, 1.0, [], passes=1)[0]
     bwd_per_step = fwd_per_step - 1
-    all_launches, losses, walls = {}, {}, {}
+    all_launches, losses, walls, g32, g16 = {}, {}, {}, {}, {}
     with _recording_shapes() as seen:
         batch = _train_batch(key)
 
@@ -3219,24 +3227,36 @@ def phase_train():
                         m.alpha_attn.fill_(TRAIN_GATES[0])
                         m.alpha_dense.fill_(TRAIN_GATES[1])
             opt = train.make_optimizer(1e-4, trainable_mask=train.gligen_adapter_mask(unet))
-            step = train.make_train_step(unet, opt, alphas,
-                                         objs_fn=lambda _, b: b["objs"],
-                                         dtype=getattr(torch, dtype_name))
+            if dtype_name == "float32":
+                # The process runs with TF32 off; the float32 step must turn it
+                # off itself.
+                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.backends.cudnn.allow_tf32 = True
+            step = train.make_train_step(unet, opt, alphas, objs_fn=lambda _, b: b["objs"])
+            tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            if tf32 != (False, False):
+                fail(f"train {dtype_name}: TF32 is on after make_train_step {tf32}")
             return unet, opt, step
 
-        def run_steps(label, step, state, n, suffix):
+        def run_steps(label, step, state, n, suffix, first_grads=None):
             fa.reset_launch_counts()
             sa.reset_launch_counts()
             gn.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             out, t_steps = [], []
-            for _ in range(n):
+            for i in range(n):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 state, loss = step(state, batch)
                 torch.cuda.synchronize()
                 t_steps.append(time.perf_counter() - t0)
                 out.append(float(loss))
+                if i == 0 and first_grads is not None:
+                    # The first step's gradients, on the host, so that the
+                    # steps' peak memory is the training's own.
+                    first_grads.update({
+                        name: p.grad.detach().float().cpu()
+                        for name, p in state.params.named_parameters() if p.grad is not None})
             launches = {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
             want = {k: 0 for k in launches}
             want[f"flash_attention_fwd{suffix}"] = n * fwd_per_step
@@ -3257,10 +3277,10 @@ def phase_train():
         log(f"train f32: UNet built (float32 parameters, seed 0) in "
             f"{time.perf_counter() - t0:.1f} s")
         state = train.init_train_state(unet, opt)
-        if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32):
-            fail("train f32: TF32 is on")
-        _, losses["f32"], walls["f32"], all_launches["f32"] = run_steps(
-            "train f32", step, state, TRAIN_F32_STEPS, "_f32")
+        # `state` holds the UNet too: it must go before the bf16 steps, or
+        # their peak memory counts the float32 state beside their own.
+        state, losses["f32"], walls["f32"], all_launches["f32"] = run_steps(
+            "train f32", step, state, TRAIN_F32_STEPS, "_f32", g32)
         del unet, opt, step, state
         torch.cuda.empty_cache()
 
@@ -3278,7 +3298,7 @@ def phase_train():
             f"{sum(p.numel() for n, p in named.items() if not mask[n]) / 1e6:.1f}M frozen")
         state = train.init_train_state(unet, opt)
         state, losses["bf16"], walls["bf16"], all_launches["bf16"] = run_steps(
-            "train bf16", step, state, TRAIN_BF16_STEPS, "")
+            "train bf16", step, state, TRAIN_BF16_STEPS, "", g16)
         l16, l32 = losses["bf16"][0], losses["f32"][0]
         share = abs(l16 - l32) / abs(l32)
         if share > TOL_TRAIN_LOSS:
@@ -3291,9 +3311,28 @@ def phase_train():
         if unchanged or moved:
             fail(f"train bf16: adapter parameters unchanged {unchanged[:5]} ({len(unchanged)}), "
                  f"frozen parameters changed {moved[:5]} ({len(moved)})")
+        if set(g16) != set(g32) or set(g16) != {n for n, on in mask.items() if on}:
+            fail(f"train: first-step gradients of {len(g16)} bf16 / {len(g32)} float32 "
+                 f"tensors, {n_adapter} adapter tensors")
+        # Each tensor on its own, the scalar gates as one vector: a gate's
+        # gradient sums its whole layer's products, which cancel, so bf16
+        # moves a single one by up to half (scripts/torch_train_memory.py).
+        gates = sorted(n for n, w in g32.items() if w.numel() == 1)
+        g16["gates"], g32["gates"] = (torch.stack([g[n] for n in gates]) for g in (g16, g32))
+        gaps = sorted(((float(torch.linalg.vector_norm(g16[n] - w) /
+                              torch.linalg.vector_norm(w)), n)
+                       for n, w in g32.items() if n not in gates), reverse=True)
+        if not gaps[0][0] <= TOL_TRAIN_GRAD:
+            fail(f"train: first-step bf16 gradients against float32's, ||g16 - g32|| / ||g32||:"
+                 f" {gaps[:5]} > {TOL_TRAIN_GRAD}")
+        del g16, g32
         log(f"train: first loss bf16 {l16} vs float32 {l32} ({share:.2e} of it, within "
-            f"{TOL_TRAIN_LOSS}); all {n_adapter} adapter tensors changed, "
-            f"{len(named) - n_adapter} frozen ones bit for bit unchanged")
+            f"{TOL_TRAIN_LOSS}); first-step gradients ||g16 - g32|| / ||g32|| over "
+            f"{len(gaps) - 1} tensors and the {len(gates)} gates as one: median "
+            f"{gaps[len(gaps) // 2][0]:.3e}, largest {gaps[:3]}, the gates "
+            f"{dict((n, g) for g, n in gaps)['gates']:.3e}, within {TOL_TRAIN_GRAD}; all "
+            f"{n_adapter} adapter tensors changed, {len(named) - n_adapter} frozen ones bit "
+            f"for bit unchanged")
         del before
 
         # (c) the checkpoint round trip.

@@ -81,6 +81,7 @@ class UNet2DCondition(nn.Module):
                  kernels: KernelOptions = KernelOptions()):
         super().__init__()
         self.config = cfg
+        self.compute_dtype = dtype
         ch = cfg.block_out_channels
         temb = cfg.time_embed_dim
         linear = cfg.use_linear_projection

@@ -195,17 +195,17 @@ def build_bundle(config: SDConfig, state_dicts: dict | None = None, seed: int = 
 
 
 def build_train_unet(config: SDConfig, state_dict: dict | None = None, seed: int = 0,
-                     device=None, kernels: KernelOptions | None = None) -> UNet2DCondition:
+                     device=None) -> UNet2DCondition:
     """The UNet of `config` for training (`training/train.py`): built for the
-    config's compute dtype, every parameter kept in float32 (the masters; no
+    config's compute dtype (its `compute_dtype`, which the train step
+    reads), every parameter kept in float32 (the masters; no
     `cast_for_inference`), in train mode with gradients on. From a state dict
     (any dtype, on the host) or, when None, seeded random weights drawn as
     `build_bundle` draws them: the UNet comes first in its order, so the same
     seed gives the bundle's UNet before the cast."""
     device = resolve_device(device)
     with torch.device(device if state_dict is None else "meta"):
-        unet = UNet2DCondition(config.unet, dtype=config.torch_dtype(),
-                               kernels=kernels or KernelOptions())
+        unet = UNet2DCondition(config.unet, dtype=config.torch_dtype())
     if state_dict is None:
         _random_init(unet.named_parameters(), torch.Generator(device=device).manual_seed(seed))
     else:

@@ -108,19 +108,18 @@ def compute_params(unet: nn.Module, dtype: torch.dtype) -> dict[str, torch.Tenso
 
 
 def make_train_step(unet: nn.Module, optimizer, alphas_cumprod,
-                    objs_fn: Callable | None = None,
-                    dtype: torch.dtype = torch.float32) -> Callable:
+                    objs_fn: Callable | None = None) -> Callable:
     """Build the train step: `train_step(state, batch) -> (state, loss)`,
     the loss a 0-d float32 tensor on the UNet's device. `state.params` must
-    be `unet`; the step updates it in place.
+    be `unet`; the step updates it in place. The compute dtype is the one
+    the UNet was built for (`unet.compute_dtype`); at float32 TF32 is turned
+    off here.
 
     batch: dict with x0 (B, H, W, C) clean latents; noise (B, H, W, C); t
     (B,) integer train timesteps; text_embeddings (B, L, D); optionally the
     GLIGEN condition that `objs_fn(unet, batch) -> (B, M, D)` grounding
-    tokens reads (without `objs_fn` the UNet runs without grounding).
-    dtype: the compute dtype the UNet was built for (bfloat16: bf16
-    activations over the float32 masters; float32: TF32 is turned off
-    here)."""
+    tokens reads (without `objs_fn` the UNet runs without grounding)."""
+    dtype = unet.compute_dtype
     if dtype == torch.float32:
         set_full_f32()
     device = next(unet.parameters()).device
@@ -130,12 +129,10 @@ def make_train_step(unet: nn.Module, optimizer, alphas_cumprod,
         a = alphas[torch.as_tensor(batch["t"], device=device).long()][:, None, None, None]
         noisy = torch.sqrt(a) * batch["x0"] + torch.sqrt(1.0 - a) * batch["noise"]
         objs = objs_fn(unet, batch) if objs_fn is not None else None
-        args = (noisy, batch["t"], batch["text_embeddings"])
-        if dtype == torch.float32:
-            eps = unet(*args, objs=objs)
-        else:
-            eps = torch.func.functional_call(unet, compute_params(unet, dtype), args,
-                                             {"objs": objs})
+        # At float32 every cast is the master itself.
+        eps = torch.func.functional_call(
+            unet, compute_params(unet, dtype),
+            (noisy, batch["t"], batch["text_embeddings"]), {"objs": objs})
         return torch.mean(torch.square(eps - batch["noise"]))
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, torch.Tensor]:

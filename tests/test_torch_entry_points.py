@@ -19,6 +19,7 @@ of the CLI and the webui, and SAM's host inputs.
 """
 
 import argparse
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -146,10 +147,11 @@ def test_generate_use_autocast_0_turns_tf32_off(tf32_on, monkeypatch, cache_path
 
 @pytest.mark.parametrize("dtype,full", [(torch.float32, True), (torch.bfloat16, False)])
 def test_training_step_float32_turns_tf32_off(tf32_on, dtype, full):
-    cfg = tconfig.SD_CONFIGS["tiny-test"]()
+    cfg = dataclasses.replace(tconfig.SD_CONFIGS["tiny-test"](),
+                              dtype=str(dtype).removeprefix("torch."))
     unet = tmodels.build_train_unet(cfg, device="cpu")
-    ttrain.make_train_step(unet, ttrain.make_optimizer(), np.ones(1000, np.float32),
-                           dtype=dtype)
+    assert unet.compute_dtype == dtype
+    ttrain.make_train_step(unet, ttrain.make_optimizer(), np.ones(1000, np.float32))
     assert _tf32() == ((False, False) if full else (True, True))
 
 

@@ -1,6 +1,6 @@
 """The port's training step and checkpoints (`lmdx_torch/training/`) against
 the JAX package's (`lmdx/training/`) on the CPU at the tiny-test UNet, in
-float32.
+float32 and in the design mode, bf16 activations over float32 masters.
 
 Weights: `tests/_torch_tiny.py::tiny_params` (GLIGEN gates open at 0.7 /
 -0.4, so that every fuser parameter has a gradient), mapped onto the port by
@@ -13,6 +13,20 @@ the CPU) in the forward and the backward.
   that records the gradients it is handed instead of stepping (an optax
   transform on the JAX side); the loss within 1e-5 relative, every gradient
   within 1e-4 of its tensor's max |g|, with and without the adapter mask.
+- bf16: the port's step on a UNet built for bfloat16 against the JAX step
+  on `UNet2DCondition(dtype=bfloat16)`, the same float32 parameters and
+  batch. Two bf16 implementations round at different points inside their
+  ops (torch computes GELU, softmax and the norms' statistics in float32,
+  XLA per op), so their gradients differ by bf16 noise: measured, the loss
+  by 1.4e-5 relative and each gradient by at most 7.1e-2 of its norm
+  (median 1.6e-2). The tolerances, 3e-5 and 0.15, sit at about twice that.
+  The control, the port's float32 step against the same JAX bf16 step,
+  lies outside both (5.9e-5; 0.33 at the first fuser's attention gate,
+  whose gradient bf16 moves by a third in both packages). Noise at this
+  level cannot see a norm's weights cast to bfloat16 (the tiny weights
+  are exact in bf16), so a second test holds the step's dtypes: every
+  flash forward and backward takes bf16 q/k/v, every Linear and Conv2d
+  runs on a bf16 weight, every norm on its float32 one.
 - AdamW: two updates of `make_optimizer(1e-3, 1e-2, adapter mask)` from the
   same (JAX) gradients against optax's, each step within 1e-7 absolute.
 - Three steps end to end at lr 1e-4: losses within 1e-4 relative; the
@@ -25,6 +39,7 @@ the CPU) in the forward and the backward.
   `latest_step_dir` equals the JAX function on one directory tree.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -40,6 +55,7 @@ from lmdx.runtime import models as jmodels
 from lmdx.training import checkpoint as jckpt
 from lmdx.training import train as jtrain
 from lmdx_torch import config as tconfig
+from lmdx_torch.nn.kernels import flash_attention as tfa
 from lmdx_torch.runtime import convert
 from lmdx_torch.runtime import models as tmodels
 from lmdx_torch.training import checkpoint as tckpt
@@ -76,9 +92,13 @@ def _port_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _port_unet(params):
-    return tmodels.build_train_unet(tconfig.SD_CONFIGS["tiny-test"](),
-                                    convert.state_dict_from_tree(params), device="cpu")
+TOL_BF16_LOSS = 3e-5  # relative
+TOL_BF16_GRAD = 0.15  # ||g - g_jax|| / ||g_jax||, each tensor
+
+
+def _port_unet(params, dtype="float32"):
+    cfg = dataclasses.replace(tconfig.SD_CONFIGS["tiny-test"](), dtype=dtype)
+    return tmodels.build_train_unet(cfg, convert.state_dict_from_tree(params), device="cpu")
 
 
 def _mask_names(mask_tree, params) -> set:
@@ -114,9 +134,7 @@ class _Record:
                       if p.grad is not None}
 
 
-@pytest.fixture(scope="module")
-def jax_grads(setup):
-    unet, params, batch, alphas = setup
+def _jax_step_grads(unet, params, batch, alphas):
     rec = _jax_record()
     step = jtrain.make_train_step(unet, rec, jnp.asarray(alphas), objs_fn=_objs)
     state = jtrain.init_train_state(jax.tree_util.tree_map(jnp.asarray, params), rec)
@@ -125,30 +143,118 @@ def jax_grads(setup):
     return float(loss), grads
 
 
+@pytest.fixture(scope="module")
+def jax_grads(setup):
+    unet, params, batch, alphas = setup
+    return _jax_step_grads(unet, params, batch, alphas)
+
+
+@pytest.fixture(scope="module")
+def jax_bf16_grads(setup):
+    _, params, batch, alphas = setup
+    unet = JaxUNet(jmodels.SD_CONFIGS["tiny-test"]().unet, dtype=jnp.bfloat16)
+    return _jax_step_grads(unet, params, batch, alphas)
+
+
+def _port_step_grads(params, batch, alphas, dtype="float32", mask=False):
+    """One port step with the recording optimizer: (unet, loss, grads)."""
+    with one_torch_thread():
+        unet = _port_unet(params, dtype)
+        rec = _Record(ttrain.gligen_adapter_mask(unet) if mask else None)
+        step = ttrain.make_train_step(unet, rec, alphas, objs_fn=_objs)
+        state = ttrain.init_train_state(unet, rec)
+        state, loss = step(state, _port_batch(batch))
+    assert state.step == 1
+    return unet, float(loss), rec.grads
+
+
 @pytest.mark.parametrize("adapter", [False, True], ids=["all", "adapter_mask"])
 def test_loss_and_gradients_match_jax(setup, jax_grads, adapter):
     _, params, batch, alphas = setup
     want_loss, grads = jax_grads
     want = convert.state_dict_from_tree(grads)
-    with one_torch_thread():
-        unet = _port_unet(params)
-        rec = _Record(ttrain.gligen_adapter_mask(unet) if adapter else None)
-        step = ttrain.make_train_step(unet, rec, alphas, objs_fn=_objs)
-        state = ttrain.init_train_state(unet, rec)
-        state, loss = step(state, _port_batch(batch))
-    assert state.step == 1
-    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
+    unet, loss, got = _port_step_grads(params, batch, alphas, mask=adapter)
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
     trained = {n for n, p in unet.named_parameters() if p.requires_grad}
-    assert set(rec.grads) == trained
+    assert set(got) == trained
     if adapter:
         assert trained == {n for n in want if ".fuser." in n}
     else:
         assert trained == set(want)
     for name in sorted(trained):
-        g, w = rec.grads[name].numpy(), want[name].numpy()
+        g, w = got[name].numpy(), want[name].numpy()
         scale = np.abs(w).max()
         assert scale > 0, name
         assert np.abs(g - w).max() <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"], ids=["bf16", "f32_control"])
+def test_bf16_step_matches_jax_bf16(setup, jax_bf16_grads, dtype):
+    """The port's bf16 step within the bf16 tolerances of the JAX bf16 step;
+    its float32 step, the control, outside them."""
+    _, params, batch, alphas = setup
+    want_loss, grads = jax_bf16_grads
+    want = convert.state_dict_from_tree(grads)
+    unet, loss, got = _port_step_grads(params, batch, alphas, dtype)
+    assert set(got) == set(want) == {n for n, _ in unet.named_parameters()}
+    for name, g in got.items():
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all()), name
+    loss_gap = abs(loss - want_loss) / abs(want_loss)
+    gaps = {n: float(np.linalg.norm(got[n].numpy() - w.numpy()) / np.linalg.norm(w.numpy()))
+            for n, w in want.items()}
+    worst = max(gaps, key=gaps.get)
+    if dtype == "bfloat16":
+        assert loss_gap <= TOL_BF16_LOSS, loss_gap
+        assert gaps[worst] <= TOL_BF16_GRAD, (worst, gaps[worst])
+    else:
+        assert loss_gap > TOL_BF16_LOSS, loss_gap
+        assert gaps[worst] > TOL_BF16_GRAD, (worst, gaps[worst])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_step_runs_at_the_unets_compute_dtype(setup, dtype, monkeypatch):
+    """Inside one step: the flash layers' forward and backward take q/k/v at
+    the compute dtype; every Linear and Conv2d runs on a weight at it, every
+    norm on a float32 weight; the masters and their gradients stay float32."""
+    _, params, batch, alphas = setup
+    want = getattr(torch, dtype)
+    seen = {"fwd": [], "bwd": [], "weight": {}}
+    fwd, bwd = tfa.flash_attention_fwd, tfa.flash_attention_bwd
+
+    def record_fwd(q, k, v):
+        seen["fwd"].append({t.dtype for t in (q, k, v)})
+        return fwd(q, k, v)
+
+    def record_bwd(q, k, v, lse, o, do):
+        seen["bwd"].append({t.dtype for t in (q, k, v, o, do)})
+        return bwd(q, k, v, lse, o, do)
+
+    monkeypatch.setattr(tfa, "flash_attention_fwd", record_fwd)
+    monkeypatch.setattr(tfa, "flash_attention_bwd", record_bwd)
+    def record_weight(name):
+        def hook(mod, _):
+            seen["weight"].setdefault(name, (type(mod), mod.weight.dtype))
+        return hook
+
+    unet = _port_unet(params, dtype)
+    for name, m in unet.named_modules():
+        if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.LayerNorm,
+                          torch.nn.GroupNorm)):
+            m.register_forward_pre_hook(record_weight(name))
+    opt = ttrain.make_optimizer(1e-4, trainable_mask=ttrain.gligen_adapter_mask(unet))
+    step = ttrain.make_train_step(unet, opt, alphas, objs_fn=_objs)
+    with one_torch_thread():
+        step(ttrain.init_train_state(unet, opt), _port_batch(batch))
+    assert seen["fwd"] and seen["bwd"]
+    assert all(s == {want} for s in seen["fwd"] + seen["bwd"]), seen
+    norms = {n for n, (cls, _) in seen["weight"].items()
+             if issubclass(cls, (torch.nn.LayerNorm, torch.nn.GroupNorm))}
+    assert norms and len(norms) < len(seen["weight"])
+    for name, (_, dt) in seen["weight"].items():
+        assert dt == (torch.float32 if name in norms else want), (name, dt)
+    for name, p in unet.named_parameters():
+        assert p.dtype == torch.float32, name
+        assert p.grad is None or p.grad.dtype == torch.float32, name
 
 
 def test_adamw_update_matches_optax(setup, jax_grads):

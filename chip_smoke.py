@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--steps N] [--lmd-steps N] [--optin-steps N]
                           [--single-steps N] [--baseline-steps N] [--ckpt-steps N]
                           [--cli-f32-steps N] [--cli-steps N] [--optin-f32-steps N]
+                          [--webui-steps N] [--dist-steps N] [--dist-tp-steps N]
                           [--profile PATH]
 
-Fifteen phases; any failure exits nonzero before the final line is printed.
+Sixteen phases; any failure exits nonzero before the final line is printed.
 Phases 3-7, 9, 10 and 13-15 run on random weights (LMDX_CHECKPOINT_DIR is
 unset for them); phase 8 loads checkpoints from disk, phase 9 a fabricated
 SAM, phase 10 a fabricated OWL-ViT, phase 11 a fabricated SDXL refiner,
@@ -122,7 +123,8 @@ phase 12 a fabricated SD2.1 base, SDXL base and SAM.
    counts of all five UNet kernels against what the dispatch rule, the
    schedule and the guidance iterations imply (the per-head forward: 0).
 6. Single-image methods: `lmdx_torch.methods.get_method(name).run(...)` on
-   the first layout (2 boxes), 512x512, 50 DDIM steps, random weights from
+   the first layout (2 boxes), 512x512, `--single-steps` DDIM steps (default
+   10: cut from 50 for phase 16's time), random weights from
    seed 0 at full width: `lmd_plus` and `gligen` on the SD1.4+GLIGEN bundle
    (LMD+ with the CoarseSegmenter), then `lmd` (with SAM ViT-B), `sd` and
    `backward_guidance` on the SD1.5 bundle; each bundle is built once for
@@ -132,7 +134,8 @@ phase 12 a fabricated SD2.1 base, SDXL base and SAM.
    imply, and that every shape the flash and SAM wrappers were given is one
    that phase 2 checked.
 7. Baselines and solvers: on one SD1.5 bundle (random weights, seed 0, full
-   width, 512x512, 50 steps) and the first layout, `boxdiff` at its
+   width, 512x512, `--baseline-steps` steps, default 10) and the first
+   layout, `boxdiff` at its
    defaults (25 guided steps, one gradient step each), `multidiffusion` at
    its defaults (CFG 10, 20 bootstrap steps over 20 VAE-encoded
    backgrounds, one 64x64 view, the 3 regions one UNet batch of 6), `sd`
@@ -143,7 +146,7 @@ phase 12 a fabricated SD2.1 base, SDXL base and SAM.
    the self-attentions on the flash kernels and its gradient on the
    backward kernel, as the JAX side routes them; invert launches 49 x 15),
    and every shape the flash wrappers were given must be one phase 2
-   checked. `--baseline-steps` cuts the depth for a rehearsal.
+   checked.
 8. Checkpoint path: fabricates `gligen/diffusers-generation-text-box` and
    `runwayml/stable-diffusion-v1-5` (diffusers layout) and
    `facebook--sam-vit-base` in fp16 at the published key names and shapes
@@ -159,9 +162,9 @@ phase 12 a fabricated SD2.1 base, SDXL base and SAM.
    file and peak memory, checks every loaded parameter bit for bit against
    the file's tensor cast to its dtype, and renders `lmd_plus` on the
    SD1.4+GLIGEN bundle and `lmd` with SAM on the SD1.5 bundle at 512x512,
-   `--ckpt-steps` DDIM steps, with phase 6's checks (images, masks, launches,
-   every wrapper shape one phase 2 checked). Each bundle is freed before the
-   next.
+   `--ckpt-steps` DDIM steps (default 10), with phase 6's checks (images,
+   masks, launches, every wrapper shape one phase 2 checked). Each bundle is
+   freed before the next.
 9. The stage-2 CLI (`lmdx_torch.cli.generate.main(argv)`, in this process)
    on a LayoutCache file of the three demo prompts (hand-written responses
    in the template's format: 3, 1 and 2 boxes). (a) `--run-model lmd
@@ -251,7 +254,8 @@ phase 12 a fabricated SD2.1 base, SDXL base and SAM.
    (SD1.4+GLIGEN, random weights) on an ephemeral port in a thread, from a
    layout cache of the demo prompts in a temporary directory: GET / lists
    the registry; POSTs of `lmd_plus` (3 boxes) and `lmd` (2 boxes) at
-   `--cli-steps` DDIM steps, each with `_drive`'s checks and the launches
+   `--webui-steps` DDIM steps (default 10), each with `_drive`'s checks and
+   the launches
    phase 6's plan implies, and each page's image equal bit for bit to
    `get_method(m).run` on the same spec and seed. Then SAM ViT-B (random
    weights) on host images: a grayscale and an RGBA image (one chunk of 2)
@@ -277,6 +281,25 @@ phase 12 a fabricated SD2.1 base, SDXL base and SAM.
    `restore`: bit for bit. (d) one step under `utils.trace.trace` with
    `annotate("train_step")`: the Chrome trace holds the span and both
    kernels' events. Each mode's step wall and peak memory are printed.
+16. The dist slice (`lmdx_torch/dist/`; `phase_dist`). (a) In this process,
+   one rank over NCCL: the CLI's batched LMD+ on the first two demo prompts
+   at `--cli-steps`, with `--mesh auto` (a 1x1 mesh on one card) and without:
+   the PNGs equal bit for bit, the `mesh:` line printed. (b) Two child
+   processes on the one card over an explicitly named gloo group (NCCL
+   refuses two ranks on one device; torch's gloo takes the CUDA tensors and
+   copies them through the host), each with SD1.4+GLIGEN (random weights, seed 0): dp 2 LMD+ on
+   SPECS at `--dist-steps` (each rank its layout; `_drive`'s checks; each
+   rank's image equal bit for bit to a one-process run of its layout, the
+   gap to the batch-2 run printed); tp 2 (4 of the 8 heads a rank): one UNet
+   forward and latent gradient within 5e-2 of max|whole| (float32: 1e-3),
+   then LMD+ on SPECS at `--dist-tp-steps` with `_drive`'s checks (the gap to
+   tp 1 printed); dp-2 bf16 training, 3 steps at batch 1 a rank (30 forward
+   and 29 backward launches a step), the first loss within 2e-2 of the
+   one-process step at batch 2, and the checkpoint round trip bit for bit.
+   The ranks report their launches and wrapper shapes: kernels 1 and 2 (and
+   1-f32, 2-f32) must have run at the split head count, and every shape
+   must be one phase 2 checked (phase 2 holds SD1.x's levels at 4 heads for
+   it).
 
 Matmuls and convolutions run in bf16 (phase 9 (a), phase 10 and phase 15 (a):
 float32); TF32 is turned off for both (torch.backends.cuda.matmul.allow_tf32 and
@@ -470,6 +493,16 @@ F32_BWD_CASES = [(3, 0), (1, 0), (1, 30)]
 F32_SAM_CASES = [(12, 64), (25 * 12, 14)]
 
 
+# Phase 16's tensor split at tp 2: SD1.x's levels at 4 of their 8 heads (B*H
+# halved). (batch, Lk - L): the tp LMD+ run on SPECS (per-box pass 8, overall
+# pass 4, guidance 2) and the UNet check (forward 2, gradient 1); the float32
+# check's forward at 2 and gradient at 1.
+SPLIT_LEVELS = tuple((h // 2, L, d) for h, L, d in FLASH_LEVELS)
+SPLIT_FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)]
+SPLIT_BWD_CASES = [(2, 0), (2, 30), (1, 0), (1, 30)]
+SPLIT_F32_FWD_CASES = [(2, 0), (2, 30), (1, 0), (1, 30)]
+SPLIT_F32_BWD_CASES = [(1, 0), (1, 30)]
+
 # The opt-in path runs on SD1.x's UNets: 8 heads at every level.
 OPTIN_HEADS = 8
 # (Lq, Lk, head_dim) of the backward calls only the opt-in path makes, at
@@ -653,6 +686,19 @@ def phase_kernels():
     n = len(SD21_LEVELS)
     _log_sums(f"fwd at d 64 (SD2.1's {n * len(SD21_FWD_CASES)} shapes)", before_f, fwd)
     _log_sums(f"bwd at d 64 (SD2.1's {n * len(SD21_BWD_CASES)} shapes)", before_b, bwd)
+    # Phase 16's tp 2: SD1.x's levels at half the heads.
+    before_f, before_b = dict(fwd), dict(bwd)
+    for heads, L, d in SPLIT_LEVELS:
+        reps = 5 if L == 4096 else 20
+        for b, extra in SPLIT_FWD_CASES:
+            _check_fwd(fwd, b, heads, L, L + extra, d, reps)
+        for b, extra in SPLIT_BWD_CASES:
+            _check_bwd(bwd, b, heads, L, L + extra, d, reps)
+    n = len(SPLIT_LEVELS)
+    _log_sums(f"fwd at tp 2 ({n * len(SPLIT_FWD_CASES)} shapes at half the heads)",
+              before_f, fwd)
+    _log_sums(f"bwd at tp 2 ({n * len(SPLIT_BWD_CASES)} shapes at half the heads)",
+              before_b, bwd)
     default_ms = bwd["ms"]
     # The fused-heads gradient (phase 5) splits heads and calls the backward at
     # the KV lengths the default dispatch keeps on plain math: the 77-token
@@ -661,7 +707,8 @@ def phase_kernels():
     for L, lk, d in BWD_SHORT_KV:
         _check_bwd(bwd, 2, OPTIN_HEADS, L, lk, d, 20)
     log(f"  bwd: {default_ms:.3f} ms over the {3 * len(BWD_CASES)} + "
-        f"{len(SD21_LEVELS) * len(SD21_BWD_CASES)} shapes of the default paths, "
+        f"{len(SD21_LEVELS) * len(SD21_BWD_CASES)} + "
+        f"{len(SPLIT_LEVELS) * len(SPLIT_BWD_CASES)} shapes of the default paths, "
         f"{bwd['ms'] - default_ms:.3f} ms over the {len(BWD_SHORT_KV)} short-KV "
         f"shapes of the opt-in path")
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
@@ -785,6 +832,17 @@ def phase_f32_kernels():
     n = len(SD21_LEVELS)
     _log_sums(f"fwd f32 at d 64 (SD2.1's {n * len(SD21_FWD_CASES)} shapes)", before_f, fwd)
     _log_sums(f"bwd f32 at d 64 (SD2.1's {n * len(SD21_BWD_CASES)} shapes)", before_b, bwd)
+    # Phase 16's float32 UNet check at tp 2.
+    before_f, before_b = dict(fwd), dict(bwd)
+    for heads, L, d in SPLIT_LEVELS:
+        reps = 3 if L == 4096 else 20
+        for b, extra in SPLIT_F32_FWD_CASES:
+            _f32_fwd_case(fwd, b, heads, L, L + extra, d, reps)
+        for b, extra in SPLIT_F32_BWD_CASES:
+            _check_bwd(bwd, b, heads, L, L + extra, d, reps, dtype=f32)
+    n = len(SPLIT_LEVELS)
+    _log_sums(f"fwd f32 at tp 2 ({n * len(SPLIT_F32_FWD_CASES)} shapes)", before_f, fwd)
+    _log_sums(f"bwd f32 at tp 2 ({n * len(SPLIT_F32_BWD_CASES)} shapes)", before_b, bwd)
 
     d = 64
     for bh, g in F32_SAM_CASES:
@@ -1634,18 +1692,16 @@ def _require_optin_shapes(label, seen, dtype_name):
         f"({ {k: len(v) for k, v in seen.items()} })")
 
 
-def _optin_unet_check(on, off, tol, label):
-    """One UNet forward and one gradient of the guidance taps w.r.t. the
-    latents, options on against options off, on the same weights and inputs
-    (batch 2, GLIGEN on): max|on - off| <= tol * max|off| for each. Also
-    holds every shape the opt-in wrappers are given against the tables phase
-    2 checked at the bundles' dtype."""
+def _unet_probe(bundle, grad_batch: int = 1):
+    """One UNet forward (batch 2, GLIGEN on) and the gradient of the guidance
+    taps' sum of squares w.r.t. the latents (the first `grad_batch` rows),
+    on seeded inputs: (eps, gradient)."""
     import torch
 
     from lmdx_torch.nn.unet import apply_unet
     from lmdx_torch.sampling.guidance import GuidanceSpec, default_guidance_keys
 
-    cfg = on.config
+    cfg = bundle.config
     gen = torch.Generator(device="cuda").manual_seed(11)
 
     def randn(*shape):
@@ -1655,29 +1711,45 @@ def _optin_unet_check(on, off, tol, label):
     ctx = randn(2, cfg.clip.max_length, cfg.unet.cross_attention_dim)
     objs = randn(2, cfg.unet.gligen_max_objs, cfg.unet.cross_attention_dim)
     spec = GuidanceSpec(keys=default_guidance_keys(cfg.unet)).tap_spec
+    with torch.no_grad():
+        eps = apply_unet(bundle.unet, lat, 501, ctx, objs=objs)[0]
+    x = lat[:grad_batch].clone().requires_grad_(True)
+    taps = apply_unet(bundle.unet, x, 501, ctx[:grad_batch], objs=objs[:grad_batch],
+                      taps=spec, stop_after_taps=True)[1]
+    loss = sum(t.float().square().sum() for t in taps.values())
+    return eps, torch.autograd.grad(loss, x)[0]
 
-    def run(bundle):
-        with torch.no_grad():
-            eps = apply_unet(bundle.unet, lat, 501, ctx, objs=objs)[0]
-        x = lat.clone().requires_grad_(True)
-        taps = apply_unet(bundle.unet, x, 501, ctx, objs=objs, taps=spec,
-                          stop_after_taps=True)[1]
-        loss = sum(t.float().square().sum() for t in taps.values())
-        return eps, torch.autograd.grad(loss, x)[0]
 
+def _hold(label, what, got, want, tol):
+    """max|got - want| <= tol * max|want|, both finite; returns the share."""
+    import torch
+
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail(f"{label}: non-finite {what}")
+    diff, ok = _err(got, want, tol)
+    ref = want.abs().max().item()
+    log(f"{label}: {what}: max|diff| {diff:.3e} = {diff / ref:.3e} of max|reference| "
+        f"{ref:.3e} (limit {tol:g})")
+    if not ok:
+        fail(f"{label}: {what} differs by {diff / ref:.3e} of max|reference|")
+    return diff / ref
+
+
+def _optin_unet_check(on, off, tol, label):
+    """One UNet forward and one gradient of the guidance taps w.r.t. the
+    latents, options on against options off, on the same weights and inputs
+    (batch 2, GLIGEN on): max|on - off| <= tol * max|off| for each. Also
+    holds every shape the opt-in wrappers are given against the tables phase
+    2 checked at the bundles' dtype."""
+    import torch
+
+    cfg = on.config
     with _recording_optin_shapes() as seen:
-        eps_on, grad_on = run(on)
-    eps_off, grad_off = run(off)
+        eps_on, grad_on = _unet_probe(on, 2)
+    eps_off, grad_off = _unet_probe(off, 2)
     torch.cuda.synchronize()
-    for what, a, b in (("eps", eps_on, eps_off), ("latent gradient", grad_on, grad_off)):
-        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            fail(f"{label}: non-finite {what}")
-        diff, ok = _err(a, b, tol)
-        ref = b.abs().max().item()
-        log(f"{label}: UNet {what} options on vs off: max|diff| {diff:.3e} = "
-            f"{diff / ref:.3e} of max|off| {ref:.3e} (limit {tol:g})")
-        if not ok:
-            fail(f"{label}: UNet {what} differs by {diff / ref:.3e} of max|off|")
+    _hold(label, "UNet eps, options on against off", eps_on, eps_off, tol)
+    _hold(label, "UNet latent gradient, options on against off", grad_on, grad_off, tol)
     _require_optin_shapes(label, seen, str(cfg.torch_dtype()).rpartition(".")[2])
 
 
@@ -1758,8 +1830,9 @@ def _dtype_name(t) -> str:
 def _phase2_shapes():
     """Every shape phase 2 holds the flash forward, the default paths'
     backward and SAM attention to, in bf16 and in float32, as
-    `_recording_shapes` records them: SD1.x's levels at 8 heads, SD2.1's
-    at 5, 10 and 20, the SDXL refiner's and the SDXL base's self-attention;
+    `_recording_shapes` records them: SD1.x's levels at 8 heads (and at 4,
+    phase 16's tp 2), SD2.1's at 5, 10 and 20, the SDXL refiner's and the
+    SDXL base's self-attention;
     the float32 backward also at batch 2, KV L and L + 30 (F32_OPTIN_BWD,
     which phase 2 checks for phase 10 and phase 15's training step gives)."""
 
@@ -1771,13 +1844,17 @@ def _phase2_shapes():
     sd21 = {dtype: (flash(SD21_LEVELS, SD21_FWD_CASES, dtype),
                     flash(SD21_LEVELS, SD21_BWD_CASES, dtype))
             for dtype in ("bfloat16", "float32")}
+    split = (flash(SPLIT_LEVELS, SPLIT_FWD_CASES, "bfloat16")
+             | flash(SPLIT_LEVELS, SPLIT_F32_FWD_CASES, "float32"),
+             flash(SPLIT_LEVELS, SPLIT_BWD_CASES, "bfloat16")
+             | flash(SPLIT_LEVELS, SPLIT_F32_BWD_CASES, "float32"))
     return {"fwd": (flash(FLASH_LEVELS, FWD_CASES, "bfloat16")
                     | flash(FLASH_LEVELS, F32_FWD_CASES, "float32") | sdxl
-                    | sd21["bfloat16"][0] | sd21["float32"][0]),
+                    | sd21["bfloat16"][0] | sd21["float32"][0] | split[0]),
             "bwd": (flash(FLASH_LEVELS, BWD_CASES, "bfloat16")
                     | flash(FLASH_LEVELS, F32_BWD_CASES, "float32")
                     | {(2, OPTIN_HEADS, L, lk, d, "float32") for L, lk, d in F32_OPTIN_BWD}
-                    | sd21["bfloat16"][1] | sd21["float32"][1]),
+                    | sd21["bfloat16"][1] | sd21["float32"][1] | split[1]),
             "sam": ({(bh, g * g, "bfloat16") for bh, g in SAM_CASES}
                     | {(bh, g * g, "float32") for bh, g in F32_SAM_CASES})}
 
@@ -3139,17 +3216,18 @@ TOL_TRAIN_GRAD = 0.1  # bf16 first-step gradient against float32's, each tensor'
 TRAIN_GATES = (0.7, -0.4)  # tanh gates of the fusers (alpha_attn, alpha_dense)
 
 
-def _train_batch(key: str):
+def _train_batch(key: str, bundle=None):
     """Phase 15's batch on the full-width bundle's towers (random weights,
-    seed 0): SPECS' two prompts through CLIP, their boxes' grounding tokens
-    through PositionNet (the conditional half of `make_gligen_inputs`),
-    seeded 64x64x4 latents and noise, timesteps 100 and 700."""
+    seed 0; `bundle`, when given, is that bundle): SPECS' two prompts
+    through CLIP, their boxes' grounding tokens through PositionNet (the
+    conditional half of `make_gligen_inputs`), seeded 64x64x4 latents and
+    noise, timesteps 100 and 700."""
     import torch
 
     from lmdx_torch.methods import base
     from lmdx_torch.runtime import models
 
-    bundle = models.load_bundle(key, seed=0, device="cuda")
+    bundle = bundle or models.load_bundle(key, seed=0, device="cuda")
     text = models.encode_text(bundle, [s["prompt"] for s in SPECS])[0]
     objs = []
     for spec in SPECS:
@@ -3169,6 +3247,28 @@ def _train_batch(key: str):
     log(f"train: batch {({k: tuple(v.shape) for k, v in batch.items()})}, objs |max| "
         f"{float(batch['objs'].abs().max()):.3f}")
     return batch
+
+
+def _gated_train_unet(cfg, dtype_name):
+    """Phase 15's trained UNet (float32 masters, random weights, seed 0,
+    built for `dtype_name`, every fuser's gates opened to TRAIN_GATES) and
+    its optimizer (AdamW at lr 1e-4 over the adapter mask)."""
+    import dataclasses
+
+    import torch
+
+    from lmdx_torch.nn.attention import GatedSelfAttention
+    from lmdx_torch.runtime import models
+    from lmdx_torch.training import train
+
+    unet = models.build_train_unet(dataclasses.replace(cfg, dtype=dtype_name), seed=0,
+                                   device="cuda")
+    with torch.no_grad():
+        for m in unet.modules():
+            if isinstance(m, GatedSelfAttention):
+                m.alpha_attn.fill_(TRAIN_GATES[0])
+                m.alpha_dense.fill_(TRAIN_GATES[1])
+    return unet, train.make_optimizer(1e-4, trainable_mask=train.gligen_adapter_mask(unet))
 
 
 def phase_train():
@@ -3194,17 +3294,13 @@ def phase_train():
     (d) One step under `utils.trace.trace` with `annotate("train_step")`: the
     trace file holds the span and both kernels' events. Prints each mode's
     step wall and peak memory."""
-    import dataclasses
-
     import torch
 
     from lmdx_torch.config import SD_CONFIGS
     from lmdx_torch.core.schedule import make_alphas_cumprod
-    from lmdx_torch.nn.attention import GatedSelfAttention
     from lmdx_torch.nn.kernels import flash_attention as fa
     from lmdx_torch.nn.kernels import group_norm as gn
     from lmdx_torch.nn.kernels import sam_attention as sa
-    from lmdx_torch.runtime import models
     from lmdx_torch.training import checkpoint, train
     from lmdx_torch.utils import trace as tracelib
 
@@ -3219,14 +3315,7 @@ def phase_train():
         batch = _train_batch(key)
 
         def build(dtype_name):
-            unet = models.build_train_unet(dataclasses.replace(cfg, dtype=dtype_name), seed=0,
-                                           device="cuda")
-            with torch.no_grad():
-                for m in unet.modules():
-                    if isinstance(m, GatedSelfAttention):
-                        m.alpha_attn.fill_(TRAIN_GATES[0])
-                        m.alpha_dense.fill_(TRAIN_GATES[1])
-            opt = train.make_optimizer(1e-4, trainable_mask=train.gligen_adapter_mask(unet))
+            unet, opt = _gated_train_unet(cfg, dtype_name)
             if dtype_name == "float32":
                 # The process runs with TF32 off; the float32 step must turn it
                 # off itself.
@@ -3402,6 +3491,382 @@ def phase_train():
     return _sum_launches(all_launches)
 
 
+# Phase 16: the dist slice. (b)'s two ranks share the one card over a gloo
+# group (NCCL refuses two ranks on one device).
+DIST_TRAIN_STEPS = 3
+DIST_TIMEOUT = 480  # seconds for phase 16 (b)'s two ranks, start-up included
+TOL_TP = TOL_OPTIN  # tp 2 UNet against the whole one, share of max|whole|
+TOL_TP_F32 = TOL_OPTIN_F32
+
+
+def _launches():
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
+    from lmdx_torch.nn.kernels import sam_attention as sa
+
+    return {**fa.LAUNCHES, **sa.LAUNCHES, **gn.LAUNCHES}
+
+
+def _reset_launches():
+    from lmdx_torch.nn.kernels import flash_attention as fa
+    from lmdx_torch.nn.kernels import group_norm as gn
+    from lmdx_torch.nn.kernels import sam_attention as sa
+
+    fa.reset_launch_counts()
+    sa.reset_launch_counts()
+    gn.reset_launch_counts()
+
+
+def dist_child(rank: int, port: int, work: str, dp_steps: int, tp_steps: int) -> None:
+    """Phase 16 (b), one of its two ranks on the one card, over a gloo
+    group: dp 2, tp 2 and dp-2 training (`phase_dist`'s docstring). Writes
+    what the parent checks to <work>/rank<rank>.json."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lmdx_torch.core.schedule import make_alphas_cumprod
+    from lmdx_torch.dist import mesh as meshlib
+    from lmdx_torch.dist import serve
+    from lmdx_torch.methods._grounded import GroundedParams
+    from lmdx_torch.methods.batch import run_lmd_plus_batch
+    from lmdx_torch.runtime import models
+    from lmdx_torch.training import checkpoint, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshlib.initialize_multihost(f"localhost:{port}", 2, rank, backend="gloo")
+    key = "gligen/diffusers-generation-text-box"
+    report = {"rank": rank, "launches": {}, "walls": {}}
+    t_child = time.perf_counter()
+
+    def digest(images):
+        return hashlib.sha1(np.ascontiguousarray(np.stack(images)).tobytes()).hexdigest()
+
+    with _recording_shapes() as seen:
+        bundle = models.load_bundle(key, seed=0, device="cuda")
+        cfg = bundle.config
+
+        def lmd_plus(label, b, steps, specs, seeds):
+            q = GroundedParams(num_inference_steps=steps)
+            return _drive(label, lambda: run_lmd_plus_batch(specs, b, bg_seeds=seeds,
+                                                            num_inference_steps=steps),
+                          cfg, steps, _default_expect(
+                              cfg, steps, 0.4, [(q.overall_max_iter,
+                                                 q.overall_max_index_step)], 0))
+
+        # dp 2: each rank's layout, gathered; then its layout alone.
+        mesh, sharded = serve.activate_mesh(bundle, dp=2)
+        if sharded.unet is not bundle.unet or mesh.dp_index != rank:
+            fail(f"dist rank {rank}: dp 2 copied the UNet or placed rank {rank} at row "
+                 f"{mesh.dp_index}")
+        t0 = time.perf_counter()
+        results, report["launches"]["dp2"] = lmd_plus(f"dist dp2 r{rank}", sharded, dp_steps,
+                                                       SPECS, [1, 2])
+        report["walls"]["dp2"] = time.perf_counter() - t0
+        serve.deactivate_mesh()
+        images = [r.image for r in results]
+        t0 = time.perf_counter()
+        own = run_lmd_plus_batch([SPECS[rank]], bundle, bg_seeds=[[1, 2][rank]],
+                                 num_inference_steps=dp_steps)[0].image
+        report["walls"]["own layout"] = time.perf_counter() - t0
+        report["dp2_digest"] = digest(images)
+        report["dp2_own_equal"] = bool(np.array_equal(own, images[rank]))
+        if rank == 0:
+            t0 = time.perf_counter()
+            batch2 = run_lmd_plus_batch(SPECS, bundle, bg_seeds=[1, 2],
+                                        num_inference_steps=dp_steps)
+            report["walls"]["batch 2"] = time.perf_counter() - t0
+            report["dp2_gap_to_batch2"] = int(max(
+                np.abs(a.astype(int) - r.image.astype(int)).max()
+                for a, r in zip(images, batch2)))
+
+        # tp 2: the UNet check, then LMD+ at tp_steps.
+        mesh, sharded = serve.activate_mesh(bundle, tp=2)
+        eps_w, grad_w = _unet_probe(bundle)
+        _reset_launches()
+        eps_s, grad_s = _unet_probe(sharded)
+        torch.cuda.synchronize()
+        report["launches"]["tp2 unet"] = _launches()
+        report["tp2_unet"] = [
+            _hold(f"dist tp2 r{rank}", "UNet eps, tp 2 against whole", eps_s, eps_w, TOL_TP),
+            _hold(f"dist tp2 r{rank}", "latent gradient, tp 2 against whole", grad_s, grad_w,
+                  TOL_TP)]
+        report["tp2_eps_digest"] = hashlib.sha1(eps_s.float().cpu().numpy().tobytes()).hexdigest()
+        heads = sorted({m.heads for m in sharded.unet.modules() if hasattr(m, "heads")})
+        if heads != [cfg.unet.num_attention_heads[0] // 2]:
+            fail(f"dist tp2 r{rank}: local heads {heads}")
+        del eps_w, grad_w, eps_s, grad_s
+        t0 = time.perf_counter()
+        results, report["launches"]["tp2 lmd_plus"] = lmd_plus(
+            f"dist tp2 r{rank}", sharded, tp_steps, SPECS, [1, 2])
+        report["walls"]["tp2"] = time.perf_counter() - t0
+        serve.deactivate_mesh()
+        tp_images = [r.image for r in results]
+        report["tp2_digest"] = digest(tp_images)
+        if rank == 0:
+            t0 = time.perf_counter()
+            whole = run_lmd_plus_batch(SPECS, bundle, bg_seeds=[1, 2],
+                                       num_inference_steps=tp_steps)
+            report["walls"]["tp1"] = time.perf_counter() - t0
+            report["tp2_gap_to_tp1"] = int(max(
+                np.abs(a.astype(int) - r.image.astype(int)).max()
+                for a, r in zip(tp_images, whole)))
+        del sharded, results
+
+        # The float32 UNet check at tp 2.
+        bundle32 = models.load_bundle(key, seed=0, dtype="float32", device="cuda")
+        mesh, sharded32 = serve.activate_mesh(bundle32, tp=2)
+        eps_w, grad_w = _unet_probe(bundle32)
+        _reset_launches()
+        eps_s, grad_s = _unet_probe(sharded32)
+        torch.cuda.synchronize()
+        report["launches"]["tp2 unet f32"] = _launches()
+        report["tp2_unet_f32"] = [
+            _hold(f"dist tp2 f32 r{rank}", "UNet eps, tp 2 against whole", eps_s, eps_w,
+                  TOL_TP_F32),
+            _hold(f"dist tp2 f32 r{rank}", "latent gradient, tp 2 against whole", grad_s,
+                  grad_w, TOL_TP_F32)]
+        serve.deactivate_mesh()
+        del bundle32, sharded32, eps_w, grad_w, eps_s, grad_s
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+        # dp 2 training, bf16 over float32 masters: the one-process step at
+        # batch 2 first, then DIST_TRAIN_STEPS sharded steps at batch 1 a rank.
+        batch = _train_batch(key, bundle)
+        del bundle
+        torch.cuda.empty_cache()
+        alphas = make_alphas_cumprod()
+        objs_fn = lambda _, b: b["objs"]  # noqa: E731
+        unet, opt = _gated_train_unet(cfg, "bfloat16")
+        state = train.init_train_state(unet, opt)
+        _, loss_one = train.make_train_step(unet, opt, alphas, objs_fn=objs_fn)(state, batch)
+        report["train_one_process_loss"] = float(loss_one)
+        del unet, opt, state
+        torch.cuda.empty_cache()
+        unet, opt = _gated_train_unet(cfg, "bfloat16")
+        mesh = meshlib.make_mesh(dp=2)
+        state = train.shard_state(train.init_train_state(unet, opt), mesh)
+        step = train.make_sharded_train_step(state.params, opt, alphas, mesh, objs_fn=objs_fn)
+        shard = meshlib.shard_batch(batch, mesh)
+        _reset_launches()
+        losses, walls = [], []
+        for _ in range(DIST_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, shard)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        report["launches"]["dp2 train"] = _launches()
+        fwd_per_step = _expected_launches(cfg, 1, 1.0, [], passes=1)[0]
+        want = {k: 0 for k in report["launches"]["dp2 train"]}
+        want.update(flash_attention_fwd=DIST_TRAIN_STEPS * fwd_per_step,
+                    flash_attention_bwd=DIST_TRAIN_STEPS * (fwd_per_step - 1))
+        if report["launches"]["dp2 train"] != want:
+            fail(f"dist train r{rank}: launches {report['launches']['dp2 train']}, expected "
+                 f"{want}")
+        report["train_losses"], report["walls"]["train steps"] = losses, walls
+        report["train_rows"] = int(shard["x0"].shape[0])
+        named = dict(state.params.named_parameters())
+        with tempfile.TemporaryDirectory(prefix="lmdx_dist_ckpt_") as root:
+            path = meshlib.from_rank0(os.path.join(root, "step"))
+            t0 = time.perf_counter()
+            checkpoint.save(path, state)
+            report["walls"]["checkpoint save"] = time.perf_counter() - t0
+            saved = {n: p.detach().clone() for n, p in named.items() if p.requires_grad}
+            moments = {n: {k: torch.as_tensor(v).clone()
+                           for k, v in state.opt_state.state[named[n]].items()}
+                       for n in saved}
+            state, _ = step(state, shard)
+            t0 = time.perf_counter()
+            state = checkpoint.restore(path, state)
+            report["walls"]["checkpoint restore"] = time.perf_counter() - t0
+            meshlib.barrier()  # rank 0's directory outlives every restore
+        bad = [n for n in saved if not torch.equal(named[n], saved[n])]
+        bad += [f"{n}.{k}" for n in saved for k, v in moments[n].items()
+                if not torch.equal(torch.as_tensor(state.opt_state.state[named[n]][k]), v)]
+        report["checkpoint_bad"] = bad[:5]
+        report["checkpoint_step"] = int(state.step)
+    report["seen"] = {k: sorted(v) for k, v in seen.items()}
+    report["walls"]["child"] = time.perf_counter() - t_child
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def phase_dist(cli_steps: int, dp_steps: int, tp_steps: int):
+    """Phase 16: the dist slice (`lmdx_torch/dist/`).
+
+    (a) In this process, one rank over NCCL: the CLI's batched LMD+ on the
+    first two demo prompts (one batch of 2) at `cli_steps`, once without and
+    once with `--mesh auto`
+    (one card: a 1x1 mesh over a one-rank group on localhost); the PNGs equal
+    bit for bit and the `mesh:` line printed.
+    (b) Two child processes on the one card over an explicitly named gloo
+    group (`dist_child`), each building SD1.4+GLIGEN (random weights, seed
+    0): dp 2 LMD+ on SPECS at `dp_steps` (each rank its layout, `_drive`'s
+    checks, every rank's gathered images alike and its own image equal bit
+    for bit to a one-process run of its layout; the gap to the batch-2 run
+    reported); tp 2 (4 of the 8 heads a rank): one UNet forward and latent
+    gradient within TOL_TP of the whole bundle's, then LMD+ on SPECS at
+    `tp_steps` with `_drive`'s checks, both ranks' images alike (the gap to
+    tp 1 reported); the same UNet check in float32 within TOL_TP_F32; dp-2
+    bf16 training (DIST_TRAIN_STEPS steps at batch 1 a rank): the first loss
+    within TOL_TRAIN_LOSS of the one-process step at batch 2, and the
+    checkpoint round trip (rank 0 writes, each rank restores) bit for bit.
+    The ranks report their launches and wrapper shapes: kernels 1 and 2
+    must have run at the split head count, and every shape must be one
+    phase 2 checked."""
+    import numpy as np
+    import torch
+
+    from lmdx_torch.dist.mesh import free_port
+    from lmdx_torch.eval.prompts import PROMPTS_DEMO
+    from lmdx_torch.text import parser
+    from lmdx_torch.text.cache import LayoutCache
+
+    t_phase = time.perf_counter()
+    all_launches = {}
+    with tempfile.TemporaryDirectory(prefix="lmdx_dist_") as root:
+        # (a) the CLI's --mesh auto, one rank over NCCL in this process.
+        cache_path = os.path.join(root, "cache_demo_v0.1_gpt-4.json")
+        cache = LayoutCache(cache_path)
+        for prompt, response in zip(PROMPTS_DEMO, DEMO_RESPONSES):
+            parser.parse_layout_response(response)
+            cache.add(prompt.strip().rstrip("."), response)
+        argv = ["--prompt-type", "demo", "--run-model", "lmd_plus", "--image-batch-size", "2",
+                "--num_prompts", "2", "--cache-path", cache_path, "--force_run_ind", "0",
+                "--num_inference_steps", str(cli_steps), "--no-continue-on-error"]
+        _cli(argv + ["--save-dir", os.path.join(root, "plain")])
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        printed = _cli(argv + ["--save-dir", os.path.join(root, "mesh"), "--mesh", "auto"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        all_launches["cli mesh auto"] = _launches()
+        if "mesh: {'dp': 1, 'tp': 1} over 1 devices" not in printed:
+            fail("dist cli: no mesh: line for --mesh auto on one card")
+        rel = sorted(os.path.relpath(os.path.join(d, f), os.path.join(root, "plain"))
+                     for d, _, fs in os.walk(os.path.join(root, "plain")) for f in fs)
+        rel_mesh = sorted(os.path.relpath(os.path.join(d, f), os.path.join(root, "mesh"))
+                          for d, _, fs in os.walk(os.path.join(root, "mesh")) for f in fs)
+        if rel != rel_mesh or not rel:
+            fail(f"dist cli: --mesh auto wrote {rel_mesh}, without it {rel}")
+        for r in rel:
+            a = _read_png(os.path.join(root, "plain", r))
+            b = _read_png(os.path.join(root, "mesh", r))
+            if not np.array_equal(a, b):
+                fail(f"dist cli: {r} differs with --mesh auto")
+        if all_launches["cli mesh auto"]["flash_attention_fwd"] <= 0:
+            fail(f"dist cli: launches {all_launches['cli mesh auto']}")
+        log(f"dist cli: --mesh auto (one rank over NCCL) wrote {len(rel)} PNGs equal bit for "
+            f"bit to the run without --mesh; wall {wall:.2f} s with the bundle's build, "
+            f"launches {all_launches['cli mesh auto']}")
+
+        # (b) two ranks on the one card over gloo.
+        work = os.path.join(root, "ranks")
+        os.makedirs(work)
+        port = free_port()
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                f"chip_smoke.dist_child({{rank}}, {port}, {work!r}, {dp_steps}, {tp_steps})")
+        logs = [open(os.path.join(work, f"log{r}.txt"), "w") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code.format(rank=r)], cwd=HERE,
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        try:
+            while any(p.poll() is None for p in procs):
+                if (any(p.poll() not in (None, 0) for p in procs)
+                        or time.perf_counter() - t0 > DIST_TIMEOUT):
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        for r in range(2):
+            with open(os.path.join(work, f"log{r}.txt")) as f:
+                for line in f.read().splitlines():
+                    log(f"  [rank {r}] {line[:300]}")
+        codes = [p.returncode for p in procs]
+        if codes != [0, 0]:
+            fail(f"dist: the ranks exited {codes} after {wall:.1f} s (limit {DIST_TIMEOUT} s)")
+        reports = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+
+    r0, r1 = reports
+    for what in ("dp2_digest", "tp2_digest", "tp2_eps_digest"):
+        if r0[what] != r1[what]:
+            fail(f"dist: the ranks' {what} differ")
+    if not (r0["dp2_own_equal"] and r1["dp2_own_equal"]):
+        fail("dist dp2: a rank's image differs from its one-process run of its layout")
+    losses = [r["train_losses"] for r in reports]
+    one = r0["train_one_process_loss"]
+    share = abs(losses[0][0] - one) / abs(one)
+    if losses[0] != losses[1] or share > TOL_TRAIN_LOSS or not all(
+            math.isfinite(x) for x in losses[0]):
+        fail(f"dist train: losses {losses} against the one-process {one} ({share:.2e} > "
+             f"{TOL_TRAIN_LOSS} or unequal)")
+    for r in reports:
+        if r["checkpoint_bad"] or r["checkpoint_step"] != DIST_TRAIN_STEPS:
+            fail(f"dist train r{r['rank']}: restore differs: {r['checkpoint_bad']}, step "
+                 f"{r['checkpoint_step']}")
+        if r["train_rows"] != 1:
+            fail(f"dist train r{r['rank']}: {r['train_rows']} rows a rank")
+    # Kernels 1 and 2 at the split head count, each tp run; every shape one
+    # phase 2 checked.
+    split = {h for h, _, _ in SPLIT_LEVELS}
+    for r in reports:
+        for name, key in (("tp2 lmd_plus", ""), ("tp2 unet", ""), ("tp2 unet f32", "_f32")):
+            got = r["launches"][name]
+            if got[f"flash_attention_fwd{key}"] <= 0 or got[f"flash_attention_bwd{key}"] <= 0:
+                fail(f"dist r{r['rank']} {name}: launches {got}")
+        heads = {s[1] for s in r["seen"]["fwd"] + r["seen"]["bwd"]}
+        if not split <= heads:
+            fail(f"dist r{r['rank']}: no flash call at the split heads {split}: {heads}")
+    seen = {k: {tuple(x) for r in reports for x in r["seen"][k]} for k in ("fwd", "bwd", "sam")}
+    _require_checked_shapes("dist", seen, required=("fwd", "bwd"))
+    for r in reports:
+        for name, launches in r["launches"].items():
+            all_launches[f"{name} r{r['rank']}"] = launches
+    walls0 = r0["walls"]
+    split_launches = _sum_launches({f"{name} r{r['rank']}": r["launches"][name]
+                                    for r in reports
+                                    for name in ("tp2 unet", "tp2 lmd_plus", "tp2 unet f32")})
+    log(f"dist: dp 2 LMD+ at {dp_steps} steps, each rank's image equal bit for bit to its "
+        f"one-process run; gap to the batch-2 run {r0['dp2_gap_to_batch2']} uint8 levels; "
+        f"walls {[round(r['walls']['dp2'], 2) for r in reports]} s (the ranks' one-layout "
+        f"runs {[round(r['walls']['own layout'], 2) for r in reports]} s side by side, rank "
+        f"0's batch-2 run {walls0['batch 2']:.2f} s while rank 1 waited)")
+    log(f"dist: tp 2 UNet eps / gradient {r0['tp2_unet']} of max|whole| (bf16, limit "
+        f"{TOL_TP}), {r0['tp2_unet_f32']} (float32, limit {TOL_TP_F32}); LMD+ at {tp_steps} "
+        f"steps, walls {[round(r['walls']['tp2'], 2) for r in reports]} s (rank 0's tp-1 run "
+        f"{walls0['tp1']:.2f} s), gap to tp 1 {r0['tp2_gap_to_tp1']} uint8 levels; launches "
+        f"at 4 heads a rank, both ranks: {split_launches}")
+    step_walls = [[round(w, 3) for w in r["walls"]["train steps"]] for r in reports]
+    log(f"dist: dp 2 training: losses {losses[0]} (one process at batch 2: {one}, "
+        f"{share:.2e} of it), step walls {step_walls} s; "
+        f"checkpoint save {r0['walls']['checkpoint save']:.1f} s, restore "
+        f"{r0['walls']['checkpoint restore']:.1f} s, bit for bit; peak "
+        f"{[round(r['peak_gib'], 2) for r in reports]} GiB a rank; children "
+        f"{[round(r['walls']['child'], 1) for r in reports]} s of {wall:.1f} s")
+    log(f"dist: phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return _sum_launches(all_launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -3411,30 +3876,37 @@ def main() -> None:
     ap.add_argument("--optin-steps", type=int, default=50,
                     help="DDIM steps of the opt-in LMD+ path (depth only; a rehearsal "
                          "flag: the check is the 50 steps of the default)")
-    ap.add_argument("--single-steps", type=int, default=50,
-                    help="DDIM steps of the single-image methods of phase 6 (depth only; a "
-                         "rehearsal flag: the check is the 50 steps of the default)")
-    ap.add_argument("--baseline-steps", type=int, default=50,
+    ap.add_argument("--single-steps", type=int, default=10,
+                    help="DDIM steps of the single-image methods of phase 6 (depth only; "
+                         "cut from 50 to 10 to keep the script within 600 s with phase 16)")
+    ap.add_argument("--baseline-steps", type=int, default=10,
                     help="steps of phase 7's BoxDiff, MultiDiffusion, DPM-Solver++ and "
-                         "inversion runs (depth only; a rehearsal flag: the check is the 50 "
-                         "steps of the default)")
-    ap.add_argument("--ckpt-steps", type=int, default=50,
+                         "inversion runs (depth only; cut from 50 to 10 for phase 16's time)")
+    ap.add_argument("--ckpt-steps", type=int, default=10,
                     help="DDIM steps of phase 8's LMD+ and LMD renders on the loaded "
-                         "checkpoints (depth only; a rehearsal flag: the check is the 50 "
-                         "steps of the default)")
+                         "checkpoints (depth only; cut from 50 to 10 for phase 16's time)")
     ap.add_argument("--cli-f32-steps", type=int, default=50,
                     help="DDIM steps of phase 9's float32 LMD through the CLI (depth only; a "
                          "rehearsal flag: the check is the 50 steps of the default)")
     ap.add_argument("--cli-steps", type=int, default=20,
                     help="DDIM steps of phase 9's batched bf16 LMD+, of phase 11's LMD+ "
-                         "before the refiner, of phase 12's LMD on SD2.1 and of phase "
-                         "13's opt-in LMD+, through the CLI, and of phase 14's webui "
-                         "requests (depth only: phases 3-6 run the same work at 50 "
-                         "steps; the refiners' 15 steps are not cut)")
+                         "before the refiner, of phase 12's LMD on SD2.1, of phase "
+                         "13's opt-in LMD+ and of phase 16 (a), through the CLI (depth "
+                         "only: phases 3-5 run the same work at 50 steps; the refiners' "
+                         "15 steps are not cut)")
     ap.add_argument("--optin-f32-steps", type=int, default=50,
                     help="DDIM steps of phase 10's float32 LMD+ with every opt-in kernel "
                          "(depth only; a rehearsal flag: the check is the 50 steps of the "
                          "default)")
+    ap.add_argument("--webui-steps", type=int, default=10,
+                    help="DDIM steps of phase 14's webui requests (depth only; cut from "
+                         "--cli-steps' 20 to 10 for phase 16's time)")
+    ap.add_argument("--dist-steps", type=int, default=10,
+                    help="DDIM steps of phase 16's dp-2 LMD+ (depth only)")
+    ap.add_argument("--dist-tp-steps", type=int, default=2,
+                    help="DDIM steps of phase 16's tp-2 LMD+ (depth only: its tensor-split "
+                         "collectives go through the host over gloo, two ranks on one "
+                         "card)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="trace the three paths and phase 9's float32 LMD with "
                          "torch.profiler and write the device time by kernel to PATH and to "
@@ -3488,17 +3960,18 @@ def main() -> None:
     sdxl = phase_sdxl(args.cli_steps)
     sd21 = phase_sd21(args.cli_steps)
     cli_optin = phase_cli_optin(args.cli_steps)
-    webui = phase_webui(args.cli_steps)
+    webui = phase_webui(args.webui_steps)
     training = phase_train()
+    dist = phase_dist(args.cli_steps, args.dist_steps, args.dist_tp_steps)
     runs = (plus, lmd, optin, single, baselines, checkpoint, cli, optin_f32, sdxl, sd21,
-            cli_optin, webui, training)
+            cli_optin, webui, training, dist)
     launches = {name: sum(run[name] for run in runs) for name in kernels}
     log(f"launches: LMD+ path {plus}, LMD path {lmd}, opt-in LMD+ path {optin}, "
         f"single-image methods {single}, baselines and solvers {baselines}, "
         f"checkpoint path {checkpoint}, CLI {cli}, float32 opt-in LMD+ path {optin_f32}, "
         f"SDXL refiner through the CLI {sdxl}, SD2.1 and the SDXL base through the CLI "
         f"{sd21}, the CLI's opt-in kernels {cli_optin}, the webui {webui}, training "
-        f"{training}")
+        f"{training}, the dist slice (both ranks) {dist}")
 
     sources = {"flash_attention_fwd": ("lmdx_torch/csrc/flash_fwd.cu",
                                        "lmdx/nn/pallas/flash_attention.py:107"),
@@ -3536,22 +4009,25 @@ def main() -> None:
     log(f"kernel times: ms, plain_ms, bound_ms and library_ms are sums of one call "
         f"at each shape above ({3 * len(FWD_CASES)} + {len(REFINER_FWD_CASES)} + "
         f"{len(SDXL_BASE_FWD_CASES)} + {n21 * len(SD21_FWD_CASES)} at d "
-        f"{REFINER_HEAD_DIM} for the flash forward, "
-        f"{3 * len(BWD_CASES)} + {n21 * len(SD21_BWD_CASES)} at d 64 + {len(BWD_SHORT_KV)} "
+        f"{REFINER_HEAD_DIM} + {3 * len(SPLIT_FWD_CASES)} at tp 2 for the flash forward, "
+        f"{3 * len(BWD_CASES)} + {n21 * len(SD21_BWD_CASES)} at d 64 + "
+        f"{3 * len(SPLIT_BWD_CASES)} at tp 2 + {len(BWD_SHORT_KV)} "
         f"for the backward, {len(SAM_CASES)} for SAM, "
         f"{len(PACKED_CASES) * n_opt} for the packed forward, {len(FUSED_CASES) * n_opt} "
         f"for the fused-heads forward, {len(STAT_CASES) * n_opt} + {len(STAT_BWD_CASES)} "
         f"+ {len(STAT_CASES) * n_opt} float32 (x, x) for pair_stats, "
-        f"{3 * len(F32_FWD_CASES)} + {n21 * len(SD21_FWD_CASES)} at d 64 for the float32 "
-        f"forward, {3 * len(F32_BWD_CASES)} + {n21 * len(SD21_BWD_CASES)} at d 64 + "
+        f"{3 * len(F32_FWD_CASES)} + {n21 * len(SD21_FWD_CASES)} at d 64 + "
+        f"{3 * len(SPLIT_F32_FWD_CASES)} at tp 2 for the float32 forward, "
+        f"{3 * len(F32_BWD_CASES)} + {n21 * len(SD21_BWD_CASES)} at d 64 + "
+        f"{3 * len(SPLIT_F32_BWD_CASES)} at tp 2 + "
         f"{len(F32_OPTIN_BWD)} for the float32 backward, "
         f"{len(F32_SAM_CASES)} for float32 SAM, {4 * n_opt} for the float32 packed "
         f"forward, {len(F32_FUSED_CASES) * n_opt} for the float32 fused-heads forward); "
         f"launches are those of the LMD+, LMD and opt-in LMD+ paths, the single-image "
         f"methods, the baselines and solvers, the checkpoint path, the CLI, the "
         f"float32 opt-in LMD+ path, the SDXL refiner through the CLI, SD2.1 with the "
-        f"SDXL base through the CLI, the CLI with the opt-in variables, the webui and "
-        f"the training steps together")
+        f"SDXL base through the CLI, the CLI with the opt-in variables, the webui, "
+        f"the training steps and phase 16's mesh runs (both ranks) together")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

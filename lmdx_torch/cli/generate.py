@@ -45,12 +45,22 @@ weights. LMDX_REFINER_MODEL names another configuration: the SDXL base
 (stabilityai/stable-diffusion-xl-base-1.0, two text towers, DDIM) or a tiny
 one.
 
-Refused, with the ROADMAP item that holds them: `--mesh` (`dist/`, not
-ported: section 1 item 10, the dist slice) and an SDXL `--sd-model` key
+`--mesh auto|dp=N|dp=N,tp=M` splits the run over a ("dp", "tp") mesh of
+processes, one per card (`lmdx_torch/dist/`): the batched mode's images
+over dp, the UNet's and the text towers' matmuls over tp. With
+LMDX_COORDINATOR, LMDX_NUM_PROCESSES and LMDX_PROCESS_ID set (one process
+per card, started by the user) each process joins the group
+(`dist.mesh.initialize_multihost`) before any device use and prints the
+`multihost:` line. Without them the CLI starts the mesh's processes on
+localhost itself (`auto`: one per local card); a mesh of one rank (one
+card, or `auto` with `--cpu`) runs in this process. Every rank prints the
+`mesh:` line; the run directory and the resume decisions are global rank
+0's, and only rank 0 writes PNGs (and so the resume state).
+
+Refused, with the ROADMAP item that holds it: an SDXL `--sd-model` key
 (item 6: an SDXL configuration serves only as the `--sdxl` refiner; its
 UNet needs text_time conditioning, which no stage-2 method passes, as in
-the JAX package). JAX's compile cache and multi-host start have no
-counterpart.
+the JAX package). JAX's compile cache has no counterpart.
 
 Example (offline, cached layouts, the CPU and the tiny test model):
     python -m lmdx_torch.cli.generate --cpu --sd-model tiny-test \\
@@ -64,6 +74,8 @@ import argparse
 import itertools
 import math
 import os
+import subprocess
+import sys
 import time
 import traceback
 
@@ -71,6 +83,8 @@ from PIL import Image
 
 from .. import methods as methods_lib
 from ..config import SD_CONFIGS, kernel_options_from_env
+from ..dist import mesh as meshlib
+from ..dist import serve as serve_lib
 from ..eval.prompts import get_prompts
 from ..methods import base as method_base
 from ..runtime.precision import set_full_f32
@@ -99,8 +113,6 @@ STR_ARGS = ["so_vertical_placement"]
 BOOL_INT_ARGS = {"horizontal_shift_only", "so_horizontal_center_only",
                  "use_ref_ca", "use_fast_schedule"}
 
-NOT_PORTED_MESH = ("--mesh: device-mesh sharding (dist/mesh.py, dist/serve.py) is not "
-                   "ported yet (ROADMAP.md section 1 item 10, the dist slice)")
 SDXL_STAGE2 = ("an SDXL configuration serves only as the --sdxl refiner: its UNet "
                "needs text_time conditioning, which no stage-2 method passes "
                "(ROADMAP.md section 1 item 6)")
@@ -149,8 +161,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "are walked in the JAX order and printed, and "
                              "nothing else runs; no image changes")
     parser.add_argument("--mesh", default=None,
-                        help="not ported: device-mesh sharding (dist/, "
-                             "ROADMAP.md section 1 item 10, the dist slice); refused")
+                        help="shard the run over a mesh of processes, one per "
+                             "card: 'auto' (dp=all local cards, or the "
+                             "LMDX_NUM_PROCESSES processes), 'dp=N', or "
+                             "'dp=N,tp=M'. Replaces the reference's "
+                             "process-level prompt sharding; use with "
+                             "--image-batch-size >= dp")
     parser.add_argument("--use-sdv2", action="store_true",
                         help="run on SD2.1 base (stabilityai/stable-diffusion-2-1-base); "
                              "GLIGEN methods need SD1.4")
@@ -233,8 +249,6 @@ def select_model_key(args) -> str:
 
 def not_ported(args) -> str | None:
     """Why the flags ask for code the port does not have, or None."""
-    if args.mesh is not None:
-        return NOT_PORTED_MESH
     if args.sd_model and args.sd_model not in SD_CONFIGS:
         return (f"--sd-model {args.sd_model}: not a configuration of the port "
                 f"({', '.join(sorted(SD_CONFIGS))})")
@@ -273,12 +287,87 @@ def make_save_dir(args) -> str:
     return f"{base}/run{run_ind}"
 
 
+def local_world(mesh_kwargs: dict, n_local: int) -> int:
+    """Ranks of a mesh started on this host: `auto` takes every local card
+    (`n_local`; 1 on the CPU), a missing axis is filled from them as
+    `make_mesh` fills it."""
+    dp, tp = mesh_kwargs.get("dp"), mesh_kwargs.get("tp")
+    if dp is None and tp is None:
+        return n_local
+    if dp is None:
+        dp = max(n_local // tp, 1)
+    if tp is None:
+        tp = max(n_local // dp, 1)
+    return dp * tp
+
+
+def launch_local(argv: list[str], world: int) -> int:
+    """Run this CLI as `world` processes on localhost, one per card, joined
+    through LMDX_COORDINATOR / LMDX_NUM_PROCESSES / LMDX_PROCESS_ID. Returns
+    0, or the first failing process's exit code after stopping the rest."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    base = {**os.environ, "LMDX_COORDINATOR": f"localhost:{meshlib.free_port()}",
+            "LMDX_NUM_PROCESSES": str(world),
+            "PYTHONPATH": os.pathsep.join(
+                [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    procs = [subprocess.Popen([sys.executable, "-m", "lmdx_torch.cli.generate", *argv],
+                              env={**base, "LMDX_PROCESS_ID": str(i)})
+             for i in range(world)]
+    try:
+        while True:
+            codes = [proc.poll() for proc in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed or all(c == 0 for c in codes):
+                return failed[0] if failed else 0
+            time.sleep(0.2)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     refused = not_ported(args)
     if refused:
         parser.error(refused)
+    mesh_kwargs = None
+    if args.mesh is not None and not args.dry_run:
+        try:
+            mesh_kwargs = serve_lib.parse_mesh_arg(args.mesh)
+        except ValueError as e:
+            parser.error(str(e))
+        if not os.environ.get("LMDX_COORDINATOR"):
+            import torch
+
+            n_local = 1 if args.cpu else torch.cuda.device_count()
+            world = local_world(mesh_kwargs, max(n_local, 1))
+            if not args.cpu and world > n_local:
+                parser.error(f"--mesh {args.mesh}: {world} processes, one per card, but "
+                             f"{n_local} card(s) here")
+            if world > 1:
+                return launch_local(sys.argv[1:] if argv is None else list(argv), world)
+    # Multi-host (no-op unless LMDX_COORDINATOR is set): before any device
+    # use, so that every process joins the same group.
+    joined = meshlib.initialize_multihost(device="cpu" if args.cpu else None)
+    if joined:
+        import torch.distributed as dist
+
+        print(f"multihost: process {dist.get_rank()}/{dist.get_world_size()}, 1 local / "
+              f"{dist.get_world_size()} global devices")
+    try:
+        return _main(args, mesh_kwargs)
+    finally:
+        serve_lib.deactivate_mesh()
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args, mesh_kwargs) -> int:
     if args.scheduler:
         alias = {"DPMSolverMultistep": "dpmpp_2m", "DDIM": "ddim",
                  "DDIMScheduler": "ddim"}
@@ -292,7 +381,7 @@ def main(argv=None) -> int:
     cache = LayoutCache(cache_path, allow_nonexist=False)
 
     prompts = get_prompts(args.prompt_type, model=args.model)
-    save_dir = make_save_dir(args)
+    save_dir = meshlib.from_rank0(make_save_dir(args))
     print(f"save_dir: {save_dir}, cache: {cache_path}")
 
     bundle = None
@@ -306,6 +395,13 @@ def main(argv=None) -> int:
             select_model_key(args),
             dtype="float32" if args.use_autocast == 0 else None, device=device,
             kernels=kernel_options_from_env())
+        if mesh_kwargs is not None:
+            mesh, bundle = serve_lib.activate_mesh(bundle, **mesh_kwargs)
+            print(f"mesh: {mesh.shape} over {mesh.size} devices")
+            if mesh.dp > 1 and args.image_batch_size < mesh.dp:
+                print(f"NOTE: dp={mesh.dp} but --image-batch-size="
+                      f"{args.image_batch_size}; dp sharding only pays off "
+                      "when the image batch divides by dp")
         sam_checkpoint = args.sam_checkpoint or models.discover_sam_checkpoint()
         if sam_checkpoint:
             print(f"SAM segmenter: {sam_checkpoint}"
@@ -314,8 +410,9 @@ def main(argv=None) -> int:
         else:
             warn_if_coarse_on_real_weights(bundle, segmenter, args.run_model)
 
+    writer = meshlib.is_writer()
     refine = None
-    if args.sdxl and not args.dry_run:
+    if args.sdxl and not args.dry_run and writer:
         from ..methods import sdxl_refine
 
         def refine(image, spec, seed):
@@ -361,7 +458,7 @@ def main(argv=None) -> int:
                 continue
 
             img_dir = f"{save_dir}/{ind}"
-            existing = (
+            existing = meshlib.from_rank0(
                 [f for f in os.listdir(img_dir) if f.startswith("img")]
                 if os.path.exists(img_dir) else []
             )
@@ -369,7 +466,8 @@ def main(argv=None) -> int:
                 print(f"Image exists at {img_dir}, skipping")
                 ind += 1
                 continue
-            os.makedirs(img_dir, exist_ok=True)
+            if writer:
+                os.makedirs(img_dir, exist_ok=True)
 
             try:
                 layout = parse_layout_response(resp)
@@ -389,9 +487,10 @@ def main(argv=None) -> int:
 
                 from ..utils import vis
 
-                vis.draw_boxes(gen_boxes, bg_prompt=bg_prompt,
-                               neg_prompt=neg_prompt).save(
-                    f"{img_dir}/boxes.png")
+                if writer:
+                    vis.draw_boxes(gen_boxes, bg_prompt=bg_prompt,
+                                   neg_prompt=neg_prompt).save(
+                        f"{img_dir}/boxes.png")
 
                 original_ind_base = (
                     ind_override + regenerate_ind * LARGE_CONSTANT2
@@ -412,6 +511,8 @@ def main(argv=None) -> int:
                         if args.no_synthetic_prompt:
                             call_kwargs["overall_prompt_override"] = prompt
                     result = method.run(spec, bundle, bg_seed=seed, **call_kwargs)
+                    if not writer:
+                        continue
                     image = result.image
                     if result.aux.get("masks"):
                         # Colored mask composite (reference parse.show_masks,
@@ -671,7 +772,7 @@ def run_batched(args, run_kwargs, cache, prompts, save_dir, bundle, segmenter,
     run_batch_fn = (run_lmd_plus_batch if args.run_model == "lmd_plus"
                     else run_lmd_batch)
 
-    jobs = build_jobs(args, cache, prompts, save_dir)
+    jobs = meshlib.from_rank0(build_jobs(args, cache, prompts, save_dir))
     groups, pad_plan, position_floor = plan_groups(
         args, jobs, tokenizer=bundle.tokenizer if bundle else None)
     if any(pad_plan):
@@ -690,6 +791,7 @@ def run_batched(args, run_kwargs, cache, prompts, save_dir, bundle, segmenter,
               f"{position_floor})")
 
     pipeline = not args.no_pipeline_batches
+    writer = meshlib.is_writer()
     print(f"[batched] {len(jobs)} jobs, batch size {args.image_batch_size}"
           + (" (pipelined)" if pipeline else ""))
 
@@ -713,7 +815,7 @@ def run_batched(args, run_kwargs, cache, prompts, save_dir, bundle, segmenter,
         group, results, pads, box_counts, n_real = entry
         method_base.finalize_results(results)  # one copy; no-op when eager
         for job, result in zip(group, results):
-            if job.get("pad"):
+            if job.get("pad") or not writer:
                 continue
             os.makedirs(job["img_dir"], exist_ok=True)
             if result.aux.get("masks"):

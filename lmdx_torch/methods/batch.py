@@ -37,7 +37,14 @@ bitwise", its docstring). They exist to bound XLA compiles, which an eager
 program does not have: the port checks them as the JAX package does
 (`pad_boxes_to` must hold the batch's boxes) and runs unpadded.
 
-Not ported: device-mesh sharding (the identity without a mesh).
+Under an active mesh (`dist/serve.py::activate_mesh`) each dp row runs its
+share of the images (`serve.shard_leading_axis`: a contiguous slice of the
+specs with their own seeds, so each image sees the noise it sees without a
+mesh) through the unchanged pipeline on its bundle, tensor-split over tp when
+tp > 1; the uint8 images and the host results are then gathered over dp, so
+every rank returns what the call returns without a mesh, in input order. A
+batch that dp does not divide runs whole on every rank (it warns). Without
+a mesh nothing of this runs.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ import torch
 
 from ..core import boxes as boxlib
 from ..core import schedule as sched
+from ..dist import mesh as meshlib
+from ..dist import serve as serve_lib
 from ..runtime import models as runtime_models
 from ..sampling import compose as compose_lib
 from ..sampling import guidance as guidance_lib
@@ -69,6 +78,35 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
     """One GenerationResult per spec (module docstring). The `pad_*_to`
     floors are checked and change nothing here; `defer_fetch` leaves the
     final images on the device behind `base.ImageRef`s."""
+    g_count = len(specs)
+    bg_seeds = bg_seeds or [p.bg_seed + i for i in range(g_count)]
+    fg_seed_starts = fg_seed_starts or [p.fg_seed_start] * g_count
+    n_boxes = sum(len(convert_spec(spec, *BOX_SCALE).so_prompt_phrase_word_box)
+                  for spec in specs)
+    if pad_boxes_to is not None and n_boxes and pad_boxes_to < n_boxes:
+        raise ValueError(f"pad_boxes_to {pad_boxes_to} < the batch's {n_boxes} boxes")
+    mesh = serve_lib.active_mesh()
+    mine = serve_lib.shard_leading_axis(list(range(g_count)), mesh)
+    final_images, extras = _run_local(
+        [specs[i] for i in mine], bundle, p, [bg_seeds[i] for i in mine],
+        [fg_seed_starts[i] for i in mine], segmenter, return_so_images)
+    if len(mine) < g_count:
+        final_images = torch.cat(meshlib.all_gather(final_images, mesh.dp_group,
+                                                    mesh.dp_members))
+        extras = [e for part in meshlib.all_gather_object(extras, mesh.dp_group,
+                                                           mesh.dp_members)
+                  for e in part]
+    deferred = base.DeferredImages(final_images) if defer_fetch else None
+    host_images = None if defer_fetch else final_images.cpu().numpy()
+    return [base.GenerationResult(
+        image=base.ImageRef(deferred, gi) if defer_fetch else host_images[gi],
+        so_img_list=so_img_list, aux=aux)
+        for gi, (so_img_list, aux) in enumerate(extras)]
+
+
+def _run_local(specs, bundle, p, bg_seeds, fg_seed_starts, segmenter, return_so_images):
+    """The pipeline on this process's images: (the uint8 images (G, H, W, 3)
+    on the device, [(so_img_list, aux)] per image)."""
     cfg = bundle.config
     device = bundle.device
     H, W = cfg.latent_height, cfg.latent_width
@@ -83,8 +121,6 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
                                       mask_th_for_point=p.mask_th_for_point)
 
     g_count = len(specs)
-    bg_seeds = bg_seeds or [p.bg_seed + i for i in range(g_count)]
-    fg_seed_starts = fg_seed_starts or [p.fg_seed_start] * g_count
     frozen_steps = int(p.num_inference_steps * min(max(p.frozen_step_ratio, 0.0), 1.0))
     schedule = sched.make_schedule(p.num_inference_steps, solver=p.scheduler)
     if p.use_fast_schedule:
@@ -118,8 +154,6 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
     # ---- ONE batched per-box pass over every box of every image ----------
     flat = [(gi, item) for gi, im in enumerate(images) for item in im["so_list"]]
     n_boxes = len(flat)
-    if pad_boxes_to is not None and n_boxes and pad_boxes_to < n_boxes:
-        raise ValueError(f"pad_boxes_to {pad_boxes_to} < the batch's {n_boxes} boxes")
     save_keys = (tuple(dict.fromkeys((p.obj_attn_key, *p.guidance_attn_keys)))
                  if p.use_ref_ca else (p.obj_attn_key,))
     fuser_steps = (int(p.so_gligen_scheduled_sampling_beta * so_schedule.num_steps)
@@ -323,17 +357,13 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
         frozen_mask=torch.from_numpy((fg_batched != 0).astype(np.float32)).to(device),
         frozen_latents=frozen_latents, num_frozen_steps=frozen_steps,
         solver=p.scheduler)
-    final_images = base.decode_latents(bundle, out.latents, to_host=not defer_fetch)
-    deferred = base.DeferredImages(final_images) if defer_fetch else None
-
-    return [base.GenerationResult(
-        image=base.ImageRef(deferred, gi) if defer_fetch else final_images[gi],
-        so_img_list=([so_images[i] for i in aux["so_image_ids"]]
-                     if return_so_images else []),
-        aux={"frozen_mask": aux["frozen_mask"],
-             "foreground_indices": aux["foreground_indices"],
-             "masks": aux["masks"]})
-        for gi, aux in enumerate(results_aux)]
+    final_images = base.decode_latents(bundle, out.latents, to_host=False)
+    return final_images, [
+        ([so_images[i] for i in aux["so_image_ids"]] if return_so_images else [],
+         {"frozen_mask": aux["frozen_mask"],
+          "foreground_indices": aux["foreground_indices"],
+          "masks": aux["masks"]})
+        for aux in results_aux]
 
 
 def _compose_batch_device(all_latents, image_box_idxs, mask_flat, latents_bg,

@@ -28,6 +28,13 @@ Dtypes: Linear/Conv weights are stored in the compute dtype and cast their
 input to it (flax `Dense(dtype=...)`); norm parameters stay f32 and norms
 compute in f32, LayerNorm returning the compute dtype and GroupNorm f32, as
 the flax modules are configured.
+
+Tensor split (`dist/mesh.py::shard_params`): an attention or feed-forward
+split over a tp mesh holds its `TensorSplit` in `tp_split` and the rank's
+heads (or GEGLU's paired slices of h and gate); its input passes
+`copy_in`, its row-split output layer all-reduces, and a tapped layer
+gathers its maps over heads before it exports them. Without a mesh
+`tp_split` is None and none of this runs.
 """
 
 from __future__ import annotations
@@ -156,6 +163,8 @@ class CrossAttention(nn.Module):
     """Multi-head attention (self when context is None); diffusers key names
     (to_q, to_k, to_v, to_out.0)."""
 
+    tp_split = None
+
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: int | None = None, tap_name: str | None = None,
                  options: KernelOptions = KernelOptions()):
@@ -171,6 +180,9 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context=None, taps: TapSpec = NO_TAPS,
                 tap_token_index=None, taps_out: dict | None = None):
+        if self.tp_split is not None:
+            x = self.tp_split.copy_in(x)
+            context = None if context is None else self.tp_split.copy_in(context)
         ctx = x if context is None else context
         qf, kf, vf = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
 
@@ -194,6 +206,8 @@ class CrossAttention(nn.Module):
                 idx = idx.long().view(-1, 1, 1, 1).expand(*export.shape[:-1], 1)
                 export = torch.gather(export, -1, idx)
             if taps_out is not None:
+                if self.tp_split is not None:
+                    export = self.tp_split.gather_heads(export)
                 taps_out[name_to_key(self.tap_name)] = export
             out = torch.matmul(probs.to(v.dtype), v)
         elif taps.fused and fa.kernel_supported(q, k):
@@ -214,12 +228,16 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
+    tp_split = None
+
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
                                   Linear(dim * mult, dim)])
 
     def forward(self, x):
+        if self.tp_split is not None:
+            x = self.tp_split.copy_in(x)
         return self.net[2](self.net[0](x))
 
 

@@ -36,12 +36,16 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
 
 
 class TimestepEmbedding(nn.Module):
+    tp_split = None  # dist/mesh.py: linear_1 column-split, linear_2 row-split
+
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
         self.linear_1 = Linear(in_dim, dim)
         self.linear_2 = Linear(dim, dim)
 
     def forward(self, t_feat):
+        if self.tp_split is not None:
+            t_feat = self.tp_split.copy_in(t_feat)
         return self.linear_2(F.silu(self.linear_1(t_feat)))
 
 

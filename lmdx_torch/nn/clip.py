@@ -28,17 +28,24 @@ def _act(name: str, x):
 
 
 class CLIPAttention(nn.Module):
+    """Self-attention over `heads` heads (the rank's share under a tensor
+    split, `dist/mesh.py`: `tp_split` then holds its TensorSplit)."""
+
+    tp_split = None
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
+        self.heads, self.head_dim = cfg.num_heads, d // cfg.num_heads
         self.q_proj, self.k_proj = Linear(d, d), Linear(d, d)
         self.v_proj, self.out_proj = Linear(d, d), Linear(d, d)
 
     def forward(self, x, mask):
-        b, l, d = x.shape
-        heads = self.cfg.num_heads
-        hd = d // heads
+        if self.tp_split is not None:
+            x = self.tp_split.copy_in(x)
+        b, l, _ = x.shape
+        heads, hd = self.heads, self.head_dim
 
         def split(t):
             return t.reshape(b, l, heads, hd).transpose(1, 2)
@@ -46,11 +53,13 @@ class CLIPAttention(nn.Module):
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / hd**0.5
         probs = torch.softmax(scores + mask, dim=-1).to(v.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, l, d)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, l, heads * hd)
         return self.out_proj(out)
 
 
 class CLIPMLP(nn.Module):
+    tp_split = None
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.act = cfg.hidden_act
@@ -58,6 +67,8 @@ class CLIPMLP(nn.Module):
         self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
+        if self.tp_split is not None:
+            x = self.tp_split.copy_in(x)
         return self.fc2(_act(self.act, self.fc1(x)))
 
 

@@ -15,6 +15,12 @@ set (what `init_train_state` builds), bit for bit. The JAX package writes
 orbax checkpoints instead; the port reads neither format of the other.
 `latest_step_dir` finds the newest `step_<n>` directory of a run, as the JAX
 function does.
+
+A state split over a mesh (`training.train.shard_state`) is saved whole:
+every rank calls `save`, the split parameters and their moments are
+gathered over tp, and only global rank 0 writes. `restore` slices the whole
+tensors for the template's split, so a checkpoint saved at one tp restores
+at any other, bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import os
 
 import torch
 
+from ..dist import mesh as meshlib
 from ..runtime import safetensors_io
 from .train import TrainState
 
@@ -41,21 +48,26 @@ def _trained(state: TrainState) -> list[tuple[str, torch.nn.Parameter]]:
 
 def save(path: str, state: TrainState) -> None:
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    safetensors_io.write(dict(state.params.state_dict()),
-                         os.path.join(path, "params.safetensors"))
+    splits = meshlib.split_params(state.params)
+    params = {n: meshlib.whole_tensor(splits.get(n), t)
+              for n, t in state.params.state_dict().items()}
     moments = {}
     for name, p in _trained(state):
         for key, value in state.opt_state.state.get(p, {}).items():
             if key not in _MOMENTS:
                 raise ValueError(f"{name}: optimizer state {key!r} has no place in a checkpoint")
-            moments[f"{name}.{key}"] = torch.as_tensor(value)
-    safetensors_io.write(moments, os.path.join(path, "opt.safetensors"))
-    (group,) = state.opt_state.param_groups
-    meta = {"step": int(state.step), "trained": [n for n, _ in _trained(state)],
-            "optimizer": {k: group[k] for k in _HYPER}}
-    with open(os.path.join(path, "state.json"), "w") as f:
-        json.dump(meta, f, indent=1)
+            moments[f"{name}.{key}"] = meshlib.whole_tensor(splits.get(name),
+                                                            torch.as_tensor(value))
+    if meshlib.is_writer():
+        os.makedirs(path, exist_ok=True)
+        safetensors_io.write(params, os.path.join(path, "params.safetensors"))
+        safetensors_io.write(moments, os.path.join(path, "opt.safetensors"))
+        (group,) = state.opt_state.param_groups
+        meta = {"step": int(state.step), "trained": [n for n, _ in _trained(state)],
+                "optimizer": {k: group[k] for k in _HYPER}}
+        with open(os.path.join(path, "state.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+    meshlib.barrier()
 
 
 def restore(path: str, template: TrainState) -> TrainState:
@@ -67,14 +79,16 @@ def restore(path: str, template: TrainState) -> TrainState:
     trained = _trained(template)
     if meta["trained"] != [n for n, _ in trained]:
         raise ValueError(f"{path}: the checkpoint trains other parameters than the template")
+    splits = meshlib.split_params(template.params)
     params = safetensors_io.read(os.path.join(path, "params.safetensors"))
-    template.params.load_state_dict(params, strict=True)
+    template.params.load_state_dict(
+        {n: meshlib.local_tensor(splits.get(n), t) for n, t in params.items()}, strict=True)
     moments = safetensors_io.read(os.path.join(path, "opt.safetensors"))
     opt = template.opt_state.state_dict()
     opt["state"] = {}
     for i, (name, _) in enumerate(trained):
-        entry = {key: moments[f"{name}.{key}"] for key in _MOMENTS
-                 if f"{name}.{key}" in moments}
+        entry = {key: meshlib.local_tensor(splits.get(name), moments[f"{name}.{key}"])
+                 for key in _MOMENTS if f"{name}.{key}" in moments}
         if entry:
             opt["state"][i] = entry
     (group,) = opt["param_groups"]

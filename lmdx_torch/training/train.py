@@ -22,8 +22,15 @@ Design:
   bfloat16 q/k/v: the forward and backward run kernels 1 and 2. float32
   runs in float32 throughout, on kernels 1-f32 and 2-f32, with TF32 off.
 - The step runs on the device of the UNet; nothing in it waits for the
-  host. The JAX package's sharded step (`make_sharded_train_step`,
-  `shard_state`) belongs to the scale-out slice and is not here.
+  host.
+- Over a ("dp", "tp") mesh (`dist/mesh.py`): `shard_state` splits the
+  float32 masters Megatron-style over tp (`mesh.shard_params`) and builds
+  the AdamW after the split, its moments sliced like their parameters, so
+  every moment has its shard's shape; `make_sharded_train_step` runs the
+  same step on the rank's share of the batch (`mesh.shard_batch`) and
+  averages the gradients and the loss over dp, which with equal shards is
+  the JAX step's mean over the whole batch. The optimizer has no
+  global-norm clipping, so AdamW on the shards is AdamW on the whole.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..dist import mesh as meshlib
 from ..runtime.models import F32_PARAM_NAME_MARKERS
 from ..runtime.precision import set_full_f32
 
@@ -119,6 +127,20 @@ def make_train_step(unet: nn.Module, optimizer, alphas_cumprod,
     (B,) integer train timesteps; text_embeddings (B, L, D); optionally the
     GLIGEN condition that `objs_fn(unet, batch) -> (B, M, D)` grounding
     tokens reads (without `objs_fn` the UNet runs without grounding)."""
+    return _make_step(unet, optimizer, alphas_cumprod, objs_fn, mesh=None)
+
+
+def make_sharded_train_step(unet: nn.Module, optimizer, alphas_cumprod, mesh,
+                            objs_fn: Callable | None = None) -> Callable:
+    """The train step over `mesh`: `unet` is the split module of a state
+    that `shard_state` returned, `batch` the rank's share
+    (`mesh.shard_batch`). After the backward the trained gradients are
+    averaged over dp (one all-reduce); the returned loss is the mean over
+    dp, the whole batch's loss."""
+    return _make_step(unet, optimizer, alphas_cumprod, objs_fn, mesh=mesh)
+
+
+def _make_step(unet, optimizer, alphas_cumprod, objs_fn, mesh):
     dtype = unet.compute_dtype
     if dtype == torch.float32:
         set_full_f32()
@@ -141,7 +163,32 @@ def make_train_step(unet: nn.Module, optimizer, alphas_cumprod,
         state.opt_state.zero_grad(set_to_none=True)
         loss = loss_fn(batch)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            grads = [p.grad for group in state.opt_state.param_groups
+                     for p in group["params"] if p.grad is not None]
+            meshlib.mean_over_dp(grads + [loss.view(1)], mesh)
         optimizer.update(state.opt_state)
-        return TrainState(state.step + 1, state.params, state.opt_state), loss.detach()
+        return TrainState(state.step + 1, state.params, state.opt_state), loss
 
     return train_step
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """The state split over `mesh`: the module through `mesh.shard_params`
+    (a copy: `state` stays as it was), a new AdamW with the same
+    hyper-parameters over its trained shards, each moment the slice of its
+    parameter's moment, and the same step."""
+    module = meshlib.shard_params(state.params, mesh)
+    splits = meshlib.split_params(module)
+    old_names = {id(p): n for n, p in state.params.named_parameters()}
+    old_state = {old_names[id(p)]: st for p, st in state.opt_state.state.items()}
+    (group,) = state.opt_state.param_groups
+    named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+    opt = torch.optim.AdamW([p for _, p in named], lr=group["lr"], betas=group["betas"],
+                            eps=group["eps"], weight_decay=group["weight_decay"])
+    for name, p in named:
+        if name in old_state:
+            opt.state[p] = {k: meshlib.local_tensor(splits.get(name), v.clone())
+                            for k, v in old_state[name].items()}
+    return TrainState(state.step, module, opt)

@@ -13,9 +13,9 @@ package's (`lmdx/cli/generate.py`).
 - The port's CLI on the CPU at tiny-test writes PNGs equal bit for bit to
   what its methods return for the same seeds (sequential and batched, the
   padded tail group, `--warm-ahead`), leaves an existing image untouched on
-  resume, and refuses `--mesh` (not ported) and an SDXL stage-2 model (a
-  refiner only); `--use-sdv2` and the SD2.1 `--sd-model` make the JAX
-  CLI's calls.
+  resume, and refuses an SDXL stage-2 model (a refiner only); `--use-sdv2`
+  and the SD2.1 `--sd-model` make the JAX CLI's calls. `--mesh` runs:
+  `tests/test_torch_dist_cli.py`.
 
 Each test writes its own layout cache for the demo prompts: hand-written
 responses in the template's format (3, 1 and 2 boxes).
@@ -241,9 +241,8 @@ def test_main_makes_the_same_calls(argv, cache_path, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    # Training is ported (tests/test_torch_training.py); --mesh stays refused
-    # and cites the dist half of item 10 alone.
-    (["--mesh", "auto"], "item 10, the dist slice"),
+    # Training (tests/test_torch_training.py) and --mesh
+    # (tests/test_torch_dist_cli.py) are ported.
     # --sdxl is ported (tests/test_torch_sdxl_refiner.py); an SDXL key as the
     # stage-2 model stays refused.
     (["--sd-model", "stabilityai/stable-diffusion-xl-refiner-1.0"], "item 6"),

@@ -42,6 +42,7 @@ from ..sampling import masking
 from ..sampling.loop import sample
 from ..text import tokens as toklib
 from ..text.parser import BOX_SCALE, convert_spec
+from ..utils import trace
 from . import base
 
 
@@ -138,6 +139,14 @@ def run_grounded(spec, bundle, p: GroundedParams,
                  segmenter: masking.Segmenter | None = None,
                  refine_cfg: masking.RefineConfig | None = None,
                  return_so_images: bool = True) -> base.GenerationResult:
+    converted = convert_spec(spec, *BOX_SCALE)
+    with trace.annotate("request", layouts=1,
+                        boxes=len(converted.so_prompt_phrase_word_box)):
+        return _run_grounded(spec, converted, bundle, p, segmenter, refine_cfg,
+                             return_so_images)
+
+
+def _run_grounded(spec, converted, bundle, p, segmenter, refine_cfg, return_so_images):
     cfg = bundle.config
     device = bundle.device
     H, W = cfg.latent_height, cfg.latent_width
@@ -153,7 +162,6 @@ def run_grounded(spec, bundle, p: GroundedParams,
 
     frozen_steps = int(p.num_inference_steps * min(max(p.frozen_step_ratio, 0.0), 1.0))
 
-    converted = convert_spec(spec, *BOX_SCALE)
     so_list = converted.so_prompt_phrase_word_box
     overall_prompt = converted.overall_prompt
     if p.overall_prompt_override.strip():
@@ -227,25 +235,27 @@ def run_grounded(spec, bundle, p: GroundedParams,
         if p.use_gligen:
             pooled = runtime_models.encode_text(bundle, [x[1] for x in so_list])[1]
             gligen_inputs = base.make_gligen_inputs_batched(bundle, so_boxes, pooled)
-        out = sample(
-            bundle.unet, so_schedule,
-            torch.from_numpy(np.concatenate(input_latents_list, axis=0)).to(device),
-            torch.cat([so_uncond.expand(n, -1, -1), so_cond], dim=0),
-            cond_embeddings=so_cond if use_so_guidance else None,
-            guidance_scale=p.guidance_scale,
-            spec=so_spec if use_so_guidance else None, guidance_data=so_data,
-            guidance_batched=use_so_guidance, max_iter=p.max_iter,
-            gligen=gligen_inputs, num_fuser_steps=fuser_steps,
-            save_all_latents=True, save_keys=save_keys,
-            save_cond_only=True, save_single_token=True,
-            tap_token_index=np.asarray(word_token_indices, np.int64),
-            solver=p.scheduler)
+        with trace.annotate("per_box_pass"):
+            out = sample(
+                bundle.unet, so_schedule,
+                trace.to_device(np.concatenate(input_latents_list, axis=0), device,
+                                "latents_to_device"),
+                torch.cat([so_uncond.expand(n, -1, -1), so_cond], dim=0),
+                cond_embeddings=so_cond if use_so_guidance else None,
+                guidance_scale=p.guidance_scale,
+                spec=so_spec if use_so_guidance else None, guidance_data=so_data,
+                guidance_batched=use_so_guidance, max_iter=p.max_iter,
+                gligen=gligen_inputs, num_fuser_steps=fuser_steps,
+                save_all_latents=True, save_keys=save_keys,
+                save_cond_only=True, save_single_token=True,
+                tap_token_index=np.asarray(word_token_indices, np.int64),
+                solver=p.scheduler)
 
         needs_pixels = return_so_images or getattr(segmenter, "needs_image", True)
         img_list = (list(base.decode_latents(bundle, out.latents)) if needs_pixels
                     else [None] * n)
-        all_latents_np = out.all_latents.cpu().numpy()
-        saved_taps_np = {k: v.cpu().numpy() for k, v in out.saved_taps.items()}
+        all_latents_np = trace.to_host(out.all_latents, "latents_to_host")
+        saved_taps_np = {k: trace.to_host(v, "taps_to_host") for k, v in out.saved_taps.items()}
         # Every box segments in ONE call.
         if p.use_gligen:
             # LMD+: the box itself prompts the segmenter.
@@ -271,10 +281,11 @@ def run_grounded(spec, bundle, p: GroundedParams,
                       * np.float32(schedule.init_noise_sigma))
 
     # ---- composition on the host ------------------------------------------
-    composed = compose_lib.compose_latents_with_alignment(
-        latents_all_list, mask_list, latents_bg, num_compose_steps=frozen_steps,
-        align_with_overall_bboxes=p.align_with_overall_bboxes,
-        overall_bboxes=overall_bboxes, horizontal_shift_only=p.horizontal_shift_only)
+    with trace.annotate("compose"):
+        composed = compose_lib.compose_latents_with_alignment(
+            latents_all_list, mask_list, latents_bg, num_compose_steps=frozen_steps,
+            align_with_overall_bboxes=p.align_with_overall_bboxes,
+            overall_bboxes=overall_bboxes, horizontal_shift_only=p.horizontal_shift_only)
     frozen_mask = (composed.foreground_indices != 0).astype(np.float32)
 
     # ---- the overall pass ---------------------------------------------------
@@ -295,7 +306,8 @@ def run_grounded(spec, bundle, p: GroundedParams,
             shifted = compose_lib.shift_ref_taps(
                 ref_taps_per_box, composed.offsets,
                 horizontal_shift_only=p.horizontal_shift_only)
-            ref_taps = {k: torch.from_numpy(v).to(device) for k, v in shifted.items()}
+            ref_taps = {k: trace.to_device(v, device, "tables_to_device")
+                        for k, v in shifted.items()}
 
     uncond, cond = runtime_models.encode_prompts(bundle, [overall_prompt], overall_negative)
     gligen_inputs = None
@@ -308,16 +320,17 @@ def run_grounded(spec, bundle, p: GroundedParams,
         fuser_steps = int(p.overall_gligen_scheduled_sampling_beta * schedule.num_steps)
 
     def dev(x):
-        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+        return trace.to_device(np.asarray(x, np.float32), device, "latents_to_device")
 
-    out = sample(
-        bundle.unet, schedule, dev(composed.latents[0]), torch.cat([uncond, cond], dim=0),
-        cond_embeddings=cond, guidance_scale=p.guidance_scale,
-        spec=overall_spec, guidance_data=overall_data, max_iter=p.overall_max_iter,
-        ref_taps=ref_taps, gligen=gligen_inputs, num_fuser_steps=fuser_steps,
-        frozen_mask=dev(frozen_mask) if so_list else None,
-        frozen_latents=dev(composed.latents) if so_list else None,
-        num_frozen_steps=frozen_steps if so_list else 0, solver=p.scheduler)
+    with trace.annotate("overall_pass"):
+        out = sample(
+            bundle.unet, schedule, dev(composed.latents[0]), torch.cat([uncond, cond], dim=0),
+            cond_embeddings=cond, guidance_scale=p.guidance_scale,
+            spec=overall_spec, guidance_data=overall_data, max_iter=p.overall_max_iter,
+            ref_taps=ref_taps, gligen=gligen_inputs, num_fuser_steps=fuser_steps,
+            frozen_mask=dev(frozen_mask) if so_list else None,
+            frozen_latents=dev(composed.latents) if so_list else None,
+            num_frozen_steps=frozen_steps if so_list else 0, solver=p.scheduler)
 
     images = base.decode_latents(bundle, out.latents)
     return base.GenerationResult(

@@ -18,6 +18,7 @@ from ..nn import vae as vaelib
 from ..runtime import models as runtime_models
 from ..runtime.models import ModelBundle
 from ..sampling import gligen as gligen_lib
+from ..utils import trace
 
 
 @dataclass
@@ -36,15 +37,16 @@ class DeferredImages:
     caller launches the next batch's work first and only then resolves the
     previous batch's images, so that the copy and the PNG encoding overlap
     the card's work on the next batch (the images are the same either
-    way)."""
+    way). The copy's wait carries the id of the request that made it."""
 
     def __init__(self, device_images: torch.Tensor):
         self._dev = device_images
         self._host = None
+        self._request_id = trace.request_id()
 
     def resolve(self) -> np.ndarray:
         if self._host is None:
-            self._host = self._dev.cpu().numpy()
+            self._host = trace.to_host(self._dev, "images_to_host", self._request_id)
             self._dev = None
         return self._host
 
@@ -76,8 +78,9 @@ def finalize_results(results) -> None:
 def decode_latents(bundle: ModelBundle, latents: torch.Tensor, to_host: bool = True):
     """Latents (B, h, w, 4) -> uint8 images (B, H, W, 3): a numpy array on
     the host, or with `to_host=False` the uint8 tensor left on the device."""
-    images = vaelib.to_uint8(bundle.vae(latents.to(bundle.device)))
-    return images.cpu().numpy() if to_host else images
+    with trace.annotate("decode"):
+        images = vaelib.to_uint8(bundle.vae(latents.to(bundle.device)))
+        return trace.to_host(images, "images_to_host") if to_host else images
 
 
 @torch.no_grad()
@@ -119,7 +122,7 @@ def make_gligen_inputs(bundle: ModelBundle, bboxes: list, phrases: list[str],
     max_objs = bundle.config.unet.gligen_max_objs
     bboxes, phrases = bboxes[:max_objs], phrases[:max_objs]
     if phrases:
-        pooled = runtime_models.encode_text(bundle, phrases)[1].cpu().numpy()
+        pooled = trace.to_host(runtime_models.encode_text(bundle, phrases)[1], "pooled_to_host")
     else:
         pooled = np.zeros((0, bundle.config.clip.hidden_size), np.float32)
     boxes, embs, masks = gligen_lib.prepare_gligen_condition(
@@ -137,7 +140,7 @@ def make_gligen_inputs_batched(bundle: ModelBundle, bboxes: list,
     grounding nulled; guidance forwards take the nulled half."""
     n = len(bboxes)
     max_objs = bundle.config.unet.gligen_max_objs
-    pooled = pooled.cpu().numpy()
+    pooled = trace.to_host(pooled, "pooled_to_host")
 
     boxes = np.zeros((n, max_objs, 4), np.float32)
     embs = np.zeros((n, max_objs, pooled.shape[-1]), np.float32)

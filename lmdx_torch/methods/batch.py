@@ -65,6 +65,7 @@ from ..sampling.loop import sample
 from ..text import tokens as toklib
 from ..text.parser import BOX_SCALE, convert_spec
 from ..text.template import DEFAULT_OVERALL_NEGATIVE_PROMPT, DEFAULT_SO_NEGATIVE_PROMPT
+from ..utils import trace
 from . import base
 from ._grounded import GroundedParams, _make_guidance_spec
 
@@ -85,19 +86,23 @@ def run_grounded_batch(specs: list, bundle, p: GroundedParams,
                   for spec in specs)
     if pad_boxes_to is not None and n_boxes and pad_boxes_to < n_boxes:
         raise ValueError(f"pad_boxes_to {pad_boxes_to} < the batch's {n_boxes} boxes")
-    mesh = serve_lib.active_mesh()
-    mine = serve_lib.shard_leading_axis(list(range(g_count)), mesh)
-    final_images, extras = _run_local(
-        [specs[i] for i in mine], bundle, p, [bg_seeds[i] for i in mine],
-        [fg_seed_starts[i] for i in mine], segmenter, return_so_images)
-    if len(mine) < g_count:
-        final_images = torch.cat(meshlib.all_gather(final_images, mesh.dp_group,
-                                                    mesh.dp_members))
-        extras = [e for part in meshlib.all_gather_object(extras, mesh.dp_group,
-                                                           mesh.dp_members)
-                  for e in part]
-    deferred = base.DeferredImages(final_images) if defer_fetch else None
-    host_images = None if defer_fetch else final_images.cpu().numpy()
+    with trace.annotate("request", layouts=g_count, boxes=n_boxes):
+        mesh = serve_lib.active_mesh()
+        mine = serve_lib.shard_leading_axis(list(range(g_count)), mesh)
+        final_images, extras = _run_local(
+            [specs[i] for i in mine], bundle, p, [bg_seeds[i] for i in mine],
+            [fg_seed_starts[i] for i in mine], segmenter, return_so_images)
+        if len(mine) < g_count:
+            final_images = torch.cat(meshlib.all_gather(final_images, mesh.dp_group,
+                                                        mesh.dp_members))
+            extras = [e for part in meshlib.all_gather_object(extras, mesh.dp_group,
+                                                               mesh.dp_members)
+                      for e in part]
+        deferred = host_images = None
+        if defer_fetch:
+            deferred = base.DeferredImages(final_images)
+        else:
+            host_images = trace.to_host(final_images, "images_to_host")
     return [base.GenerationResult(
         image=base.ImageRef(deferred, gi) if defer_fetch else host_images[gi],
         so_img_list=so_img_list, aux=aux)
@@ -185,7 +190,7 @@ def _run_local(specs, bundle, p, bg_seeds, fg_seed_starts, segmenter, return_so_
         enc_hidden, enc_pooled = runtime_models.encode_text(bundle, texts)
         cond = enc_hidden[:n_boxes]
         uncond = enc_hidden[n_boxes:n_boxes + g_count][
-            torch.as_tensor([gi for gi, _ in flat], device=device)]
+            trace.to_device([gi for gi, _ in flat], device, "tables_to_device")]
         word_token_indices = np.asarray([
             toklib.get_phrase_indices(bundle.tokenizer, item[0], [item[1]],
                                       words=[item[2]]).word_token_indices[0]
@@ -210,27 +215,29 @@ def _run_local(specs, bundle, p, bg_seeds, fg_seed_starts, segmenter, return_so_
                     max_objs=1, max_positions=so_p_pad, max_ref_boxes=1)
                 for (_, item), obj_pos in zip(flat, so_positions)], device)
 
-        out = sample(
-            bundle.unet, so_schedule,
-            torch.from_numpy(np.concatenate(per_box_latents, axis=0)).to(device),
-            torch.cat([uncond, cond], dim=0),
-            cond_embeddings=cond if use_so_guidance else None,
-            guidance_scale=p.guidance_scale,
-            spec=so_spec if use_so_guidance else None, guidance_data=so_data,
-            guidance_batched=True, max_iter=p.max_iter,
-            gligen=gligen_inputs, num_fuser_steps=fuser_steps,
-            save_all_latents=True, save_keys=save_keys,
-            save_cond_only=True, save_single_token=True,
-            tap_token_index=word_token_indices, solver=p.scheduler)
+        with trace.annotate("per_box_pass"):
+            out = sample(
+                bundle.unet, so_schedule,
+                trace.to_device(np.concatenate(per_box_latents, axis=0), device,
+                                "latents_to_device"),
+                torch.cat([uncond, cond], dim=0),
+                cond_embeddings=cond if use_so_guidance else None,
+                guidance_scale=p.guidance_scale,
+                spec=so_spec if use_so_guidance else None, guidance_data=so_data,
+                guidance_batched=True, max_iter=p.max_iter,
+                gligen=gligen_inputs, num_fuser_steps=fuser_steps,
+                save_all_latents=True, save_keys=save_keys,
+                save_cond_only=True, save_single_token=True,
+                tap_token_index=word_token_indices, solver=p.scheduler)
         needs_pixels = return_so_images or getattr(segmenter, "needs_image", True)
         so_images = (list(base.decode_latents(bundle, out.latents))
                      if needs_pixels else [None] * n_boxes)
         if not on_device:
-            all_latents_np = out.all_latents.cpu().numpy()
-            taps_np = {k: v.cpu().numpy() for k, v in out.saved_taps.items()}
+            all_latents_np = trace.to_host(out.all_latents, "latents_to_host")
+            taps_np = {k: trace.to_host(v, "taps_to_host") for k, v in out.saved_taps.items()}
             obj_taps_np = taps_np[p.obj_attn_key]
         elif not p.use_gligen:
-            obj_taps_np = out.saved_taps[p.obj_attn_key].cpu().numpy()
+            obj_taps_np = trace.to_host(out.saved_taps[p.obj_attn_key], "taps_to_host")
     else:
         for im in images:
             latents_bg_per_image.append(
@@ -258,12 +265,14 @@ def _run_local(specs, bundle, p, bg_seeds, fg_seed_starts, segmenter, return_so_
 
     device_path = bool(n_boxes) and on_device
     if device_path:
-        frozen_latents, fg_batched = _compose_batch_device(
-            out.all_latents, image_box_idxs, all_masks,
-            np.concatenate(latents_bg_per_image, axis=0), frozen_steps)
+        with trace.annotate("compose"):
+            frozen_latents, fg_batched = _compose_batch_device(
+                out.all_latents, image_box_idxs, all_masks,
+                np.concatenate(latents_bg_per_image, axis=0), frozen_steps)
     elif on_device:
         frozen_latents = torch.zeros((frozen_steps + 1, g_count, H, W, 4), device=device)
-        frozen_latents[0] = torch.from_numpy(np.concatenate(latents_bg_per_image)).to(device)
+        frozen_latents[0] = trace.to_device(np.concatenate(latents_bg_per_image), device,
+                                            "latents_to_device")
         fg_batched = np.zeros((g_count, H, W), np.int32)
 
     overall_spec = _make_guidance_spec(p, overall=True)
@@ -275,13 +284,14 @@ def _run_local(specs, bundle, p, bg_seeds, fg_seed_starts, segmenter, return_so_
         if on_device:
             fg_idx = fg_batched[gi]
         else:
-            host = compose_lib.compose_latents_with_alignment(
-                [all_latents_np[:, bi:bi + 1] for bi in idxs],
-                [all_masks[bi] for bi in idxs], latents_bg_per_image[gi],
-                num_compose_steps=frozen_steps,
-                align_with_overall_bboxes=p.align_with_overall_bboxes,
-                overall_bboxes=[x[2] for x in conv.overall_phrases_words_bboxes],
-                horizontal_shift_only=p.horizontal_shift_only)
+            with trace.annotate("compose"):
+                host = compose_lib.compose_latents_with_alignment(
+                    [all_latents_np[:, bi:bi + 1] for bi in idxs],
+                    [all_masks[bi] for bi in idxs], latents_bg_per_image[gi],
+                    num_compose_steps=frozen_steps,
+                    align_with_overall_bboxes=p.align_with_overall_bboxes,
+                    overall_bboxes=[x[2] for x in conv.overall_phrases_words_bboxes],
+                    horizontal_shift_only=p.horizontal_shift_only)
             composed_list.append(host.latents)
             fg_idx = host.foreground_indices
             if p.use_ref_ca:
@@ -330,11 +340,13 @@ def _run_local(specs, bundle, p, bg_seeds, fg_seed_starts, segmenter, return_so_
     elif p.use_ref_ca and not on_device:
         padded = [_pad_ref(shifted, bx_pad, p, cfg, so_schedule.num_steps, latent_hw,
                            num_levels) for shifted in shifted_refs]
-        ref_batched = {k: torch.from_numpy(np.stack([r[k] for r in padded], axis=1)).to(device)
+        ref_batched = {k: trace.to_device(np.stack([r[k] for r in padded], axis=1), device,
+                                          "tables_to_device")
                        for k in p.guidance_attn_keys}       # (T, G, Bx, heads, n)
     if not on_device:
-        frozen_latents = torch.from_numpy(
-            np.concatenate(composed_list, axis=1).astype(np.float32)).to(device)
+        frozen_latents = trace.to_device(
+            np.concatenate(composed_list, axis=1).astype(np.float32), device,
+            "latents_to_device")
         fg_batched = np.stack([aux["foreground_indices"] for aux in results_aux])
 
     # ---- ONE batched overall pass -----------------------------------------
@@ -346,17 +358,19 @@ def _run_local(specs, bundle, p, bg_seeds, fg_seed_starts, segmenter, return_so_
     uncond = enc_hidden[g_count:2 * g_count]
     gligen_inputs = (_overall_gligen_batched(bundle, images, pooled=enc_pooled[2 * g_count:])
                      if p.use_gligen else None)
-    out = sample(
-        bundle.unet, schedule, frozen_latents[0], torch.cat([uncond, cond], dim=0),
-        cond_embeddings=cond, guidance_scale=p.guidance_scale,
-        spec=overall_spec, guidance_data=data_batched, guidance_batched=True,
-        max_iter=p.overall_max_iter, ref_taps=ref_batched,
-        gligen=gligen_inputs,
-        num_fuser_steps=(int(p.overall_gligen_scheduled_sampling_beta * schedule.num_steps)
-                         if p.use_gligen else 0),
-        frozen_mask=torch.from_numpy((fg_batched != 0).astype(np.float32)).to(device),
-        frozen_latents=frozen_latents, num_frozen_steps=frozen_steps,
-        solver=p.scheduler)
+    with trace.annotate("overall_pass"):
+        out = sample(
+            bundle.unet, schedule, frozen_latents[0], torch.cat([uncond, cond], dim=0),
+            cond_embeddings=cond, guidance_scale=p.guidance_scale,
+            spec=overall_spec, guidance_data=data_batched, guidance_batched=True,
+            max_iter=p.overall_max_iter, ref_taps=ref_batched,
+            gligen=gligen_inputs,
+            num_fuser_steps=(int(p.overall_gligen_scheduled_sampling_beta * schedule.num_steps)
+                             if p.use_gligen else 0),
+            frozen_mask=trace.to_device((fg_batched != 0).astype(np.float32), device,
+                                        "tables_to_device"),
+            frozen_latents=frozen_latents, num_frozen_steps=frozen_steps,
+            solver=p.scheduler)
     final_images = base.decode_latents(bundle, out.latents, to_host=False)
     return final_images, [
         ([so_images[i] for i in aux["so_image_ids"]] if return_so_images else [],
@@ -395,7 +409,7 @@ def _compose_batch_device(all_latents, image_box_idxs, mask_flat, latents_bg,
             labels[gi, j] = oi + 1
 
     def dev(x):
-        return torch.from_numpy(x).to(device)
+        return trace.to_device(x, device, "tables_to_device")
 
     masks_t, box_t = dev(masks), dev(box_masks)
     traj = all_latents[:num_compose_steps + 1][:, dev(idx_map)]  # (S+1, G, n_max, H, W, C)
@@ -426,8 +440,8 @@ def _gather_ref_batched(taps, image_box_idxs, max_boxes, keys):
     out = {}
     for k in keys:
         v = taps[k]
-        out[k] = (v[..., 0][:, torch.from_numpy(idx_map).to(v.device)]
-                  * torch.from_numpy(valid).to(v.device)[None, :, :, None, None])
+        out[k] = (v[..., 0][:, trace.to_device(idx_map, v.device, "tables_to_device")]
+                  * trace.to_device(valid, v.device, "tables_to_device")[None, :, :, None, None])
     return out
 
 
@@ -468,7 +482,8 @@ def _overall_gligen_batched(bundle, images, pooled):
     max_objs = bundle.config.unet.gligen_max_objs
     g_count = len(images)
     width = bundle.config.clip.hidden_size
-    pooled = pooled.cpu().numpy() if len(pooled) else np.zeros((0, width), np.float32)
+    pooled = (trace.to_host(pooled, "pooled_to_host") if len(pooled)
+              else np.zeros((0, width), np.float32))
 
     boxes_arr = np.zeros((g_count, max_objs, 4), np.float32)
     embs = np.zeros((g_count, max_objs, width), np.float32)

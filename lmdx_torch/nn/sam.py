@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import boxes as boxlib
+from ..utils import trace
 from .attention import Conv2d, Embedding, LayerNorm, Linear
 from .kernels import sam_attention as sam_kernel
 
@@ -486,15 +487,19 @@ class SamSegmenter:
             raise ValueError("need exactly one of input_points and input_boxes")
         if not images:
             return []
-        chunks = []
-        for s in range(0, len(images), self.CHUNK):
-            chunks.append(self._segment_chunk(
-                self._pixels(images[s:s + self.CHUNK]),
-                None if input_points is None else input_points[s:s + self.CHUNK],
-                None if input_boxes is None else input_boxes[s:s + self.CHUNK],
-                target_hw))
-        masks = torch.cat([m for m, _ in chunks]).cpu().numpy()
-        iou = torch.cat([i for _, i in chunks]).float().cpu().numpy()
+        with trace.annotate("segment"):
+            chunks = []
+            for s in range(0, len(images), self.CHUNK):
+                with trace.annotate("sam_pixels"):
+                    pixels = self._pixels(images[s:s + self.CHUNK])
+                with trace.annotate("sam_chunk"):
+                    chunks.append(self._segment_chunk(
+                        pixels,
+                        None if input_points is None else input_points[s:s + self.CHUNK],
+                        None if input_boxes is None else input_boxes[s:s + self.CHUNK],
+                        target_hw))
+            masks = trace.to_host(torch.cat([m for m, _ in chunks]), "sam_masks_to_host")
+            iou = trace.to_host(torch.cat([i for _, i in chunks]).float(), "sam_masks_to_host")
         return [(masks[i], iou[i]) for i in range(len(images))]
 
     def _pixels(self, images) -> torch.Tensor:
@@ -516,7 +521,7 @@ class SamSegmenter:
             size = self.config.image_size
             arrs = [np.asarray(Image.fromarray(a).resize((size, size), Image.BILINEAR),
                                np.uint8) for a in arrs]
-        return torch.from_numpy(np.stack(arrs)).to(self.device)
+        return trace.to_device(np.stack(arrs), self.device, "sam_to_device")
 
     def _segment_chunk(self, pixels, input_points, input_boxes, target_hw):
         n, oh, ow = pixels.shape[:3]
@@ -540,9 +545,10 @@ class SamSegmenter:
                 labels[i, 0] = 1
 
         x = _bilinear(pixels.permute(0, 3, 1, 2).float(), size, size).permute(0, 2, 3, 1)
-        mean = torch.from_numpy(SAM_MEAN).to(self.device)
-        std = torch.from_numpy(SAM_STD).to(self.device)
-        masks, iou = self.model((x - mean) / std, torch.from_numpy(points).to(self.device),
-                                torch.from_numpy(labels).to(self.device))
+        mean = trace.to_device(SAM_MEAN, self.device, "sam_to_device")
+        std = trace.to_device(SAM_STD, self.device, "sam_to_device")
+        masks, iou = self.model((x - mean) / std,
+                                trace.to_device(points, self.device, "sam_to_device"),
+                                trace.to_device(labels, self.device, "sam_to_device"))
         th, tw = target_hw
         return postprocess_masks(masks, size, oh, ow, th, tw), iou

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import KernelOptions, UNetConfig
+from ..utils import trace
 from .attention import NO_TAPS, Conv2d, Linear, TapSpec, group_norm, norm_silu
 from .blocks import (
     CrossAttnDownBlock,
@@ -153,7 +154,7 @@ class UNet2DCondition(nn.Module):
         cfg = self.config
         stop_point = _last_tap_point(taps) if stop_after_taps else None
         dtype = self.conv_in.weight.dtype
-        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        timesteps = trace.to_device(timesteps, sample.device, "timesteps_to_device")
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
         t_feat = timestep_embedding(timesteps, cfg.block_out_channels[0],

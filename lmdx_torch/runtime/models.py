@@ -42,6 +42,7 @@ from ..nn.sam import Sam, SamConfig, SamSegmenter, sam_vit_base
 from ..nn.unet import PositionNet, UNet2DCondition
 from ..nn.vae import ENCODE_HALF, AutoencoderKL
 from ..text import tokens as toklib
+from ..utils import trace
 from . import convert
 from .precision import set_full_f32
 
@@ -390,20 +391,21 @@ def encode_text(bundle: ModelBundle, texts: list[str]):
     1280 = 2048), pooled the second tower's; both take the same ids. (The
     JAX side pads the batch to a power of two with EOS rows and slices them
     off; each row is independent, so the port pads nothing.)"""
-    ids = np.asarray(
-        [bundle.tokenizer.encode(t, pad_to=toklib.MAX_LENGTH) for t in texts], np.int64)
-    # Reduced-vocab test configs only: fold ids into the model's vocab.
-    vocab = bundle.config.clip.vocab_size
-    eos_id = bundle.tokenizer.eos_id
-    if vocab < toklib.BOS_ID:
-        ids = ids % vocab
-        eos_id = eos_id % vocab
-    ids = torch.from_numpy(ids).to(bundle.device)
-    hidden, pooled = bundle.text_encoder(ids, eos_token_id=eos_id)
-    if bundle.text_encoder_2 is not None:
-        hidden2, pooled = bundle.text_encoder_2(ids, eos_token_id=eos_id)
-        hidden = torch.cat([hidden, hidden2], dim=-1)
-    return hidden.float(), pooled.float()
+    with trace.annotate("text"):
+        ids = np.asarray(
+            [bundle.tokenizer.encode(t, pad_to=toklib.MAX_LENGTH) for t in texts], np.int64)
+        # Reduced-vocab test configs only: fold ids into the model's vocab.
+        vocab = bundle.config.clip.vocab_size
+        eos_id = bundle.tokenizer.eos_id
+        if vocab < toklib.BOS_ID:
+            ids = ids % vocab
+            eos_id = eos_id % vocab
+        ids = trace.to_device(ids, bundle.device, "text_to_device")
+        hidden, pooled = bundle.text_encoder(ids, eos_token_id=eos_id)
+        if bundle.text_encoder_2 is not None:
+            hidden2, pooled = bundle.text_encoder_2(ids, eos_token_id=eos_id)
+            hidden = torch.cat([hidden, hidden2], dim=-1)
+        return hidden.float(), pooled.float()
 
 
 def encode_prompts(bundle: ModelBundle, prompts: list[str], negative_prompt: str = "",
@@ -424,6 +426,7 @@ def gligen_objs(bundle: ModelBundle, boxes, masks, phrase_embeddings):
         raise ValueError("model has no GLIGEN adapters")
 
     def dev(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=bundle.device)
+        return trace.to_device(np.asarray(x, np.float32), bundle.device, "gligen_to_device")
 
-    return bundle.position_net(dev(boxes), dev(masks), dev(phrase_embeddings))
+    with trace.annotate("gligen"):
+        return bundle.position_net(dev(boxes), dev(masks), dev(phrase_embeddings))

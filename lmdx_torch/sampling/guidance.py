@@ -28,6 +28,7 @@ import torch
 
 from ..core import boxes as boxlib
 from ..nn.attention import AttnKey, TapSpec
+from ..utils import trace
 
 DEFAULT_GUIDANCE_ATTN_KEYS: tuple[AttnKey, ...] = (
     ("mid", 0, 0, 0), ("up", 1, 0, 0), ("up", 1, 1, 0), ("up", 1, 2, 0),
@@ -187,7 +188,7 @@ def stack_guidance_data(datas: list, device) -> dict:
     def stack(*xs):
         if isinstance(xs[0], dict):
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
-        return torch.as_tensor(np.stack(xs, axis=0), device=device)
+        return trace.to_device(np.stack(xs, axis=0), device, "tables_to_device")
 
     return stack(*datas)
 
@@ -197,7 +198,7 @@ def guidance_data_to_device(data: dict, device) -> dict:
     data of `ca_loss` and of `sample(..., guidance_batched=False)`."""
     if isinstance(data, dict):
         return {k: guidance_data_to_device(v, device) for k, v in data.items()}
-    return torch.as_tensor(np.asarray(data), device=device)
+    return trace.to_device(np.asarray(data), device, "tables_to_device")
 
 
 def _with_image_axis(tree):
@@ -275,18 +276,20 @@ def guidance_update_batched(unet_taps, latents: torch.Tensor, loss_in: torch.Ten
     at or below the threshold takes no update (it is frozen) while the others
     keep optimizing: the same result as running each image's loop alone."""
     lat, per_prev = latents, loss_in
-    it = 0
-    while it < max_iter and bool(
-            (per_prev / spec.loss_scale > spec.loss_threshold).any()):
-        x = lat.detach().requires_grad_(True)
-        with torch.enable_grad():
-            taps = unet_taps(x)
-            per = ca_loss_batched(taps, data, spec, ref_taps=ref_taps) * spec.loss_scale
-            (grad,) = torch.autograd.grad(per.sum(), x)
-        active = (per_prev / spec.loss_scale > spec.loss_threshold).to(lat.dtype)
-        lat = lat - grad * step_size * active[:, None, None, None]
-        per_prev = per.detach()
-        it += 1
+    for _ in range(max_iter):
+        with trace.wait("guidance_threshold"):
+            above = bool((per_prev / spec.loss_scale > spec.loss_threshold).any())
+        if not above:
+            break
+        with trace.annotate("guidance_iter"):
+            x = lat.detach().requires_grad_(True)
+            with torch.enable_grad():
+                taps = unet_taps(x)
+                per = ca_loss_batched(taps, data, spec, ref_taps=ref_taps) * spec.loss_scale
+                (grad,) = torch.autograd.grad(per.sum(), x)
+            active = (per_prev / spec.loss_scale > spec.loss_threshold).to(lat.dtype)
+            lat = lat - grad * step_size * active[:, None, None, None]
+            per_prev = per.detach()
     return lat, per_prev
 
 

@@ -32,6 +32,7 @@ import torch
 from ..core import schedule as sched
 from ..nn.attention import NO_TAPS, AttnKey, TapSpec
 from ..nn.unet import apply_unet
+from ..utils import trace
 from . import boxdiff as boxdiff_lib
 from . import guidance as guidance_lib
 
@@ -100,7 +101,8 @@ def sample(
                             single_token=save_single_token)
                     if save_keys else NO_TAPS)
     if tap_token_index is not None:
-        tap_token_index = torch.as_tensor(tap_token_index, device=latents.device)
+        tap_token_index = trace.to_device(tap_token_index, latents.device,
+                                          "tables_to_device")
     if frozen_mask is not None:
         fm = frozen_mask.float()
         fm = fm[None, :, :, None] if fm.dim() == 2 else fm[:, :, :, None]
@@ -139,18 +141,19 @@ def sample(
                                       objs=objs_guidance, taps=spec.tap_spec,
                                       stop_after_taps=True)[1]
 
-                if isinstance(spec, boxdiff_lib.BoxDiffSpec):
-                    latents, loss = boxdiff_lib.boxdiff_update(
-                        unet_taps, latents, step_index=i, num_steps=num_steps,
-                        data=guidance_data, spec=spec)
-                else:
-                    ref = ({k: v[i] for k, v in ref_taps.items()}
-                           if ref_taps is not None else None)
-                    latents, loss = update(
-                        unet_taps, latents, loss,
-                        step_size=sched.guidance_step_size(schedule, t, solver),
-                        max_iter=budgets[i], data=guidance_data, spec=spec,
-                        ref_taps=ref)
+                with trace.annotate("guidance"):
+                    if isinstance(spec, boxdiff_lib.BoxDiffSpec):
+                        latents, loss = boxdiff_lib.boxdiff_update(
+                            unet_taps, latents, step_index=i, num_steps=num_steps,
+                            data=guidance_data, spec=spec)
+                    else:
+                        ref = ({k: v[i] for k, v in ref_taps.items()}
+                               if ref_taps is not None else None)
+                        latents, loss = update(
+                            unet_taps, latents, loss,
+                            step_size=sched.guidance_step_size(schedule, t, solver),
+                            max_iter=budgets[i], data=guidance_data, spec=spec,
+                            ref_taps=ref)
 
             with torch.no_grad():
                 latent_in = torch.cat([latents, latents], dim=0)

@@ -45,6 +45,7 @@ from torch import nn
 from ..dist import mesh as meshlib
 from ..runtime.models import F32_PARAM_NAME_MARKERS
 from ..runtime.precision import set_full_f32
+from ..utils import trace
 
 ADAPTER_SEGMENTS = ("fuser", "position_net")
 
@@ -148,27 +149,32 @@ def _make_step(unet, optimizer, alphas_cumprod, objs_fn, mesh):
     alphas = torch.tensor(np.asarray(alphas_cumprod, np.float32), device=device)
 
     def loss_fn(batch):
-        a = alphas[torch.as_tensor(batch["t"], device=device).long()][:, None, None, None]
-        noisy = torch.sqrt(a) * batch["x0"] + torch.sqrt(1.0 - a) * batch["noise"]
-        objs = objs_fn(unet, batch) if objs_fn is not None else None
         # At float32 every cast is the master itself.
-        eps = torch.func.functional_call(
-            unet, compute_params(unet, dtype),
-            (noisy, batch["t"], batch["text_embeddings"]), {"objs": objs})
-        return torch.mean(torch.square(eps - batch["noise"]))
+        with trace.annotate("cast_params"):
+            params = compute_params(unet, dtype)
+        with trace.annotate("forward"):
+            a = alphas[torch.as_tensor(batch["t"], device=device).long()][:, None, None, None]
+            noisy = torch.sqrt(a) * batch["x0"] + torch.sqrt(1.0 - a) * batch["noise"]
+            objs = objs_fn(unet, batch) if objs_fn is not None else None
+            eps = torch.func.functional_call(
+                unet, params, (noisy, batch["t"], batch["text_embeddings"]), {"objs": objs})
+            return torch.mean(torch.square(eps - batch["noise"]))
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, torch.Tensor]:
         if state.params is not unet:
             raise ValueError("state.params is not the UNet this step was built for")
-        state.opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(batch)
-        loss.backward()
-        loss = loss.detach()
-        if mesh is not None:
-            grads = [p.grad for group in state.opt_state.param_groups
-                     for p in group["params"] if p.grad is not None]
-            meshlib.mean_over_dp(grads + [loss.view(1)], mesh)
-        optimizer.update(state.opt_state)
+        with trace.annotate("train_step", request_id=state.step):
+            state.opt_state.zero_grad(set_to_none=True)
+            loss = loss_fn(batch)
+            with trace.annotate("backward"):
+                loss.backward()
+            loss = loss.detach()
+            if mesh is not None:
+                grads = [p.grad for group in state.opt_state.param_groups
+                         for p in group["params"] if p.grad is not None]
+                meshlib.mean_over_dp(grads + [loss.view(1)], mesh)
+            with trace.annotate("optimizer"):
+                optimizer.update(state.opt_state)
         return TrainState(state.step + 1, state.params, state.opt_state), loss
 
     return train_step

@@ -32,7 +32,9 @@ phase 12 a fabricated SD2.1 base, SDXL base and SAM.
    guidance), each with KV = L and L + 30 (the GLIGEN fuser); the backward
    at batch 4 (LMD's per-box guidance of 4 boxes; KV = L, as SD1.5 has no
    fuser), 2 (overall guidance; KV = L and L + 30) and 1 (single-image
-   guidance; KV = L and L + 30); and the forward at the SDXL refiner's
+   guidance; KV = L and L + 30), and at the training cell's batch 16
+   (TRAIN_BWD_CASES, KV = L and L + 30; head dims 40 and 80 run the
+   warpgroup-MMA backward); and the forward at the SDXL refiner's
    head dim 64 (phase 11, REFINER_FWD_CASES: CFG batch 2 at 12 heads x 4096
    tokens, 24 x 1024 and 24 x 256, KV = L), the SDXL base's (phase 12 (d),
    SDXL_BASE_FWD_CASES: CFG batch 2 at 10 heads x 4096 and 20 x 1024) and
@@ -459,6 +461,9 @@ def _bound(total: dict, flops: float, nbytes: float,
 # fuser (a group of 3 boxes: 3 x CFG).
 FWD_CASES = [(b, extra) for b in (8, 4, 2, 1) for extra in (0, 30)] + [(6, 0), (6, 30)]
 BWD_CASES = [(2, 0), (2, 30), (4, 0), (1, 0), (1, 30)]
+# The training cell's backward (benchmark `train.sd14_gligen_bf16.b16`):
+# batch 16, KV = L and the fuser's L + 30, at each level.
+TRAIN_BWD_CASES = [(16, 0), (16, 30)]
 # (heads, tokens, head_dim) of SD1.x's attention levels at 512x512.
 FLASH_LEVELS = ((8, 4096, 40), (8, 1024, 80), (8, 256, 160))
 # SD2.1 base's levels at 512x512 (phase 12): head dim 64 at 5, 10 and 20 heads.
@@ -699,6 +704,14 @@ def phase_kernels():
               before_f, fwd)
     _log_sums(f"bwd at tp 2 ({n * len(SPLIT_BWD_CASES)} shapes at half the heads)",
               before_b, bwd)
+    # The training cell's batch 16 (phase 15 runs batch 2); its sums apart
+    # and in the totals.
+    before_b = dict(bwd)
+    for heads, L, d in FLASH_LEVELS:
+        for b, extra in TRAIN_BWD_CASES:
+            _check_bwd(bwd, b, heads, L, L + extra, d, 3 if L == 4096 else 10)
+    _log_sums(f"bwd at the training batch ({len(FLASH_LEVELS) * len(TRAIN_BWD_CASES)} "
+              f"shapes)", before_b, bwd)
     default_ms = bwd["ms"]
     # The fused-heads gradient (phase 5) splits heads and calls the backward at
     # the KV lengths the default dispatch keeps on plain math: the 77-token
@@ -708,7 +721,8 @@ def phase_kernels():
         _check_bwd(bwd, 2, OPTIN_HEADS, L, lk, d, 20)
     log(f"  bwd: {default_ms:.3f} ms over the {3 * len(BWD_CASES)} + "
         f"{len(SD21_LEVELS) * len(SD21_BWD_CASES)} + "
-        f"{len(SPLIT_LEVELS) * len(SPLIT_BWD_CASES)} shapes of the default paths, "
+        f"{len(SPLIT_LEVELS) * len(SPLIT_BWD_CASES)} + "
+        f"{len(FLASH_LEVELS) * len(TRAIN_BWD_CASES)} shapes of the default paths, "
         f"{bwd['ms'] - default_ms:.3f} ms over the {len(BWD_SHORT_KV)} short-KV "
         f"shapes of the opt-in path")
     return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
@@ -3350,6 +3364,11 @@ def phase_train():
             want = {k: 0 for k in launches}
             want[f"flash_attention_fwd{suffix}"] = n * fwd_per_step
             want[f"flash_attention_bwd{suffix}"] = n * bwd_per_step
+            if not suffix:
+                # The 4096- and 1024-token levels (head dims 40 and 80) take the
+                # warpgroup-MMA backward; the 256-token level's third of the
+                # layers (head dim 160) does not.
+                want["flash_attention_bwd_sm90"] = n * (bwd_per_step - fwd_per_step // 3)
             if launches != want:
                 fail(f"{label}: launches {launches}, expected {want} ({fwd_per_step} forwards "
                      f"and {bwd_per_step} backwards a step)")
@@ -3474,7 +3493,8 @@ def phase_train():
             names = [e.get("name", "") for e in events]
             counts = {what: sum(what in n for n in names)
                       for what in ("train_step", "flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                   "flash_bwd_dkdv_kernel")}
+                                   "flash_bwd_dkdv_kernel", "flash_bwd_dq_sm90_kernel",
+                                   "flash_bwd_dkdv_sm90_kernel")}
             if min(counts.values()) < 1:
                 fail(f"train trace: events {counts}: the span or a kernel is missing (the step "
                      f"launched {fwd_per_step} forwards and {bwd_per_step} backwards)")
@@ -3664,7 +3684,10 @@ def dist_child(rank: int, port: int, work: str, dp_steps: int, tp_steps: int) ->
         fwd_per_step = _expected_launches(cfg, 1, 1.0, [], passes=1)[0]
         want = {k: 0 for k in report["launches"]["dp2 train"]}
         want.update(flash_attention_fwd=DIST_TRAIN_STEPS * fwd_per_step,
-                    flash_attention_bwd=DIST_TRAIN_STEPS * (fwd_per_step - 1))
+                    flash_attention_bwd=DIST_TRAIN_STEPS * (fwd_per_step - 1),
+                    # all but the 256-token level's third (head dim 160)
+                    flash_attention_bwd_sm90=DIST_TRAIN_STEPS * (fwd_per_step - 1
+                                                                 - fwd_per_step // 3))
         if report["launches"]["dp2 train"] != want:
             fail(f"dist train r{rank}: launches {report['launches']['dp2 train']}, expected "
                  f"{want}")

@@ -52,11 +52,17 @@
 // so that every fragment index is static; up to 80 the warp keeps its K/V
 // (dK/dV kernel) or Q/dO (dQ kernel) fragments in registers for the whole
 // walk, above it rereads them from shared memory each step to stay inside
-// the register file. Not done: wgmma and TMA; and a split of the dK/dV
-// kernel's q walk over several blocks where its grid is small (KV 77: one
-// KV tile a head), as those shapes are a few percent of the backward's time
-// on the paths (PERF.md).
+// the register file. Not done: a split of the dK/dV kernel's q walk over
+// several blocks where its grid is small (KV 77: one KV tile a head), as
+// those shapes are a few percent of the backward's time on the paths
+// (PERF.md).
+//
+// The entry sends a head dim that is a multiple of 8 and pads to 48 or 80
+// (SD1.x's 40 and 80, most of the training step's backward) to the
+// warpgroup-MMA kernels of flash_bwd_sm90.cuh instead, by head dim alone;
+// lmdx_flash_bwd_sm90 tells the wrapper which path a head dim takes.
 #include "flash_common.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace lmdx {
 namespace {
@@ -517,8 +523,33 @@ int launch_flash_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   return (int)cudaGetLastError();
 }
 
+// The same two-kernel order on the warpgroup-MMA kernels.
+template <int DP>
+int launch_flash_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                          const bf16* g, const float* lse, float* delta, bf16* dq, bf16* dk,
+                          bf16* dv, int bh, int lq, int lk, int d, cudaStream_t st) {
+  constexpr int THREADS = 128 * Sm90Bwd<DP>::kWarpgroups, ROWS = 64 * Sm90Bwd<DP>::kWarpgroups;
+  const float scale = 1.0f / sqrtf((float)d);
+  cudaError_t err = set_smem(flash_bwd_dq_sm90_kernel<DP>, sm90_dq_smem_bytes<DP>());
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_sm90_kernel<DP><<<dim3((lq + ROWS - 1) / ROWS, bh), THREADS,
+                                 sm90_dq_smem_bytes<DP>(), st>>>(q, k, v, o, g, lse, delta, dq,
+                                                                 lq, lk, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = set_smem(flash_bwd_dkdv_sm90_kernel<DP>, sm90_dkdv_smem_bytes<DP>());
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_sm90_kernel<DP><<<dim3((lk + ROWS - 1) / ROWS, bh), THREADS,
+                                   sm90_dkdv_smem_bytes<DP>(), st>>>(q, k, v, g, lse, delta, dk,
+                                                                     dv, lq, lk, d, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace lmdx
+
+// 1 where lmdx_flash_bwd runs the warpgroup-MMA kernels at head dim d.
+extern "C" int lmdx_flash_bwd_sm90(int d) { return lmdx::sm90_bwd_takes(d) ? 1 : 0; }
 
 extern "C" int lmdx_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* g, const void* lse, void* delta, void* dq,
@@ -527,6 +558,18 @@ extern "C" int lmdx_flash_bwd(const void* q, const void* k, const void* v, const
   using namespace lmdx;
   if (bh <= 0 || lq <= 0 || lk <= 0 || d <= 0 || d > 256 || bh > 65535) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (sm90_bwd_takes(d)) {
+    auto run = [&](auto dp) {
+      return launch_flash_bwd_sm90<decltype(dp)::value>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+          static_cast<const bf16*>(g), static_cast<const float*>(lse),
+          static_cast<float*>(delta), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), bh, lq, lk, d, static_cast<cudaStream_t>(stream));
+    };
+    return d <= 48 ? run(std::integral_constant<int, 48>{})
+                   : run(std::integral_constant<int, 80>{});
   }
   return dispatch_head_dim<256>(d, [&](auto dp) {
     return launch_flash_bwd<decltype(dp)::value>(

@@ -60,7 +60,11 @@ from . import build as buildlib
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one exactly where it launches its kernel.
+# `flash_attention_bwd` counts every bf16 backward, `flash_attention_bwd_sm90`
+# those of them that ran the warpgroup-MMA kernels (`csrc/flash_bwd_sm90.cuh`:
+# head dims that are a multiple of 8 and pad to 48 or 80).
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_sm90": 0,
             "flash_attention_fwd_packed": 0, "flash_attention_fwd_fusedheads": 0,
             "flash_attention_fwd_f32": 0, "flash_attention_bwd_f32": 0,
             "flash_attention_fwd_packed_f32": 0, "flash_attention_fwd_fusedheads_f32": 0}
@@ -476,6 +480,16 @@ def _bwd_lib():
     return fn
 
 
+def _bwd_sm90(d: int) -> bool:
+    """Whether the bf16 backward's entry takes the warpgroup-MMA kernels at
+    head dim d (the choice is the library's, by head dim alone)."""
+    fn = buildlib.library("flash_bwd").lmdx_flash_bwd_sm90
+    if fn.argtypes is None:
+        fn.argtypes = [_INT]
+        fn.restype = _INT
+    return fn(d) == 1
+
+
 def _fwd_f32_lib():
     fn = buildlib.library("attention_f32").lmdx_flash_fwd_f32
     if fn.argtypes is None:
@@ -621,9 +635,10 @@ def flash_attention_fwd_fusedheads(qf, kf, vf, heads: int):
 
 def flash_attention_bwd(q, k, v, lse, o, do):
     """(dq, dk, dv) of attention from the forward's lse and o; for CUDA tensors
-    the kernels of q's dtype (bf16: `csrc/flash_bwd.cu`; float32:
-    `csrc/attention_f32.cu`), for CPU tensors the plain version. k, v, o and
-    do must have q's dtype, lse is float32."""
+    the kernels of q's dtype (bf16: `csrc/flash_bwd.cu`, which runs those of
+    `csrc/flash_bwd_sm90.cuh` at head dims 8-48 and 72-80 in steps of 8;
+    float32: `csrc/attention_f32.cu`), for CPU tensors the plain version. k,
+    v, o and do must have q's dtype, lse is float32."""
     if q.device.type == "cpu":
         _check_cpu_dtypes({"q": q, "k": k, "v": v, "o": o, "do": do})
         return attention_bwd_plain(q, k, v, lse, o, do)
@@ -644,6 +659,8 @@ def flash_attention_bwd(q, k, v, lse, o, do):
     if rc != 0:
         raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
     LAUNCHES[key] += 1
+    if q.dtype == torch.bfloat16 and _bwd_sm90(d):
+        LAUNCHES["flash_attention_bwd_sm90"] += 1
     return dq, dk, dv
 
 

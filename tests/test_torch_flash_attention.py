@@ -82,7 +82,8 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     o, lse = fa.flash_attention_fwd(q, k, v)
     fa.flash_attention_bwd(q, k, v, lse, o, g)
     assert fa.LAUNCHES == dict.fromkeys(
-        ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_packed",
+        ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bwd_sm90",
+         "flash_attention_fwd_packed",
          "flash_attention_fwd_fusedheads", "flash_attention_fwd_f32",
          "flash_attention_bwd_f32", "flash_attention_fwd_packed_f32",
          "flash_attention_fwd_fusedheads_f32"), 0)

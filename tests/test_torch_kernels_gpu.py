@@ -271,6 +271,61 @@ def test_backward_matches_the_tiled_plain_more_closely_than_the_one_pass_plain(c
         assert err_t <= err_p, (err_t, err_p)
 
 
+# The warpgroup-MMA backward (`csrc/flash_bwd_sm90.cuh`, head dims 40 and 80):
+# the training cell's batch 16 x 8 heads at KV = L and the fuser's L + 30 (and
+# a ragged Lq of 4126), cell 1's guidance at 4 boxes x 8 heads, and a ragged
+# shape whose q and KV ends cut through tiles.
+SM90_BWD_SHAPES = [(128, 4096, 4096, 40), (128, 4126, 4126, 40), (128, 1024, 1054, 80),
+                   (32, 4096, 4126, 40), (3, 300, 700, 40)]
+
+
+def _by_heads(fn, *args, heads=16):
+    """fn over the (1, BH, ...) inputs a few heads at a time (the plain
+    versions hold (BH, Lq, Lk) f32 matrices), joined along the heads."""
+    bh = args[0].shape[1]
+    parts = [fn(*(a[:, i:i + heads] for a in args)) for i in range(0, bh, heads)]
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", SM90_BWD_SHAPES)
+def test_sm90_backward_matches_plain_and_the_tiled_plain(no_tf32, bh, lq, lk, d):
+    """Held to the one-pass plain version (2e-2 of max|plain|) and to the
+    tiled plain version, which rounds p and dS to bf16 as the kernels do
+    (one bf16 ulp of the largest entry, and closer on average than the
+    one-pass version); counted under its own key."""
+    q, k, v, do = _inputs(bh, lq, lk, d, no_tf32, seed=21)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    fa.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, lse, o, do)
+    assert fa.LAUNCHES["flash_attention_bwd"] == fa.LAUNCHES["flash_attention_bwd_sm90"] == 1
+    plain = _by_heads(fa.attention_bwd_plain, q, k, v, lse, o, do)
+    tiled = _by_heads(fa.attention_bwd_tiled_plain, q, k, v, lse, o, do)
+    torch.cuda.synchronize()
+    for g, t, p in zip(got, tiled, plain):
+        assert torch.isfinite(g.float()).all()
+        _close(g, p)
+        _close(g, t, rel=2 ** -7)
+        err_t = (g.float() - t.float()).abs().mean().item()
+        err_p = (g.float() - p.float()).abs().mean().item()
+        assert err_t <= err_p, (err_t, err_p)
+
+
+def test_sm90_backward_is_counted_at_head_dims_40_and_80_only(cuda):
+    """The library picks the path by head dim alone: 40 and 80 (and 32) take
+    the warpgroup-MMA kernels, 64, 160 and a head dim off multiples of 8 the
+    mma.sync ones, at any batch and head count."""
+    taken = {}
+    for bh, d in [(8, 40), (32, 40), (4, 80), (8, 32), (8, 64), (16, 64), (8, 160), (3, 20)]:
+        q, k, v, do = _inputs(bh, 256, 286, d, cuda, seed=22)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        fa.reset_launch_counts()
+        fa.flash_attention_bwd(q, k, v, lse, o, do)
+        assert fa.LAUNCHES["flash_attention_bwd"] == 1
+        taken[(bh, d)] = fa.LAUNCHES["flash_attention_bwd_sm90"]
+    assert taken == {(8, 40): 1, (32, 40): 1, (4, 80): 1, (8, 32): 1, (8, 64): 0,
+                     (16, 64): 0, (8, 160): 0, (3, 20): 0}
+
+
 def test_wrapper_counts_and_rejects(cuda):
     q, k, v, _ = _inputs(2, 64, 256, 40, cuda)
     fa.reset_launch_counts()
